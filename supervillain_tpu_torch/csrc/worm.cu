@@ -1,0 +1,164 @@
+// Villain classic (plaquette) worms on Hopper.
+//
+// Replaces supervillain_tpu/ops/pallas_worm.py:classic_worms (kernel body
+// _make_worm_kernel) and the worm section of ops/pallas_hammer.py.  Same
+// move semantics as generators/villain.py:ClassicWorm: the head moves to one
+// of the 4 neighboring plaquettes (east, north, west, south), Metropolis on
+// ΔS = (κ/2)(−2πΔn)(2r − 2πΔn) of the crossed link; when closed (head ==
+// tail, or always at W = 1) a move closes the worm with probability 0.2; every
+// non-close move tallies head − tail into the chain's Vortex_Vortex histogram.
+//
+// What bounds it on the H100: dependent-load latency.  A worm is a random
+// walk; each move's link and site addresses depend on the previous move's
+// outcome, so one chain makes one round of loads (φ at the two ends of the
+// link and the link's n, in parallel) per move and waits one device-memory
+// round trip for it.  Throughput comes only from running many chains at once.
+//
+// Design: one thread per chain, running its `worms` worms in sequence.  The
+// thread owns its chain's n and histogram, so nothing is atomic.  The link
+// residual is recomputed from φ and n at each move instead of being kept in a
+// residual array, which keeps the worm independent of the sweep's scratch and
+// matches the XLA ClassicWorm.  Lanes of a warp wait for the longest worm of
+// the warp (per-warp "max, not mean"); blocks of 32 threads spread the warps
+// over the SMs.  Whether a warp per chain does better is later work.
+//
+// Cap and rollback: with a move cap at W != 1 a worm still open at the cap
+// leaves dn ≢ 0 (mod W) and is undone.  Instead of the TPU's O(N²) snapshot
+// of (n, r) before every worm, the thread logs the direction (2 bits) of each
+// accepted move in its chain's slice of `log` (cap/16 words), and on
+// truncation replays the path from the start plaquette, subtracting each Δn:
+// exact (integers), O(moves) work, bounded memory.  At W = 1 an open worm is a
+// valid configuration and is kept (no log is needed).
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "philox.cuh"
+
+namespace {
+
+using sv::philox4x32_10;
+using sv::u24;
+using sv::exp_neg;
+using sv::TWO_PI;
+
+// Moves (east, north, west, south) in (t, x), the crossed link's direction and
+// offset from the head, and the constraint-restoring Δn sign — the tables of
+// generators/villain.py:ClassicWorm.
+__constant__ int MOVE_T[4] = {0, 1, 0, -1};
+__constant__ int MOVE_X[4] = {-1, 0, 1, 0};
+__constant__ int LINK_DIR[4] = {0, 1, 0, 1};
+__constant__ int OFF_T[4] = {0, 1, 0, 0};
+__constant__ int OFF_X[4] = {0, 0, 1, 0};
+__constant__ int PLAQ[4] = {1, 1, -1, -1};
+
+__device__ __forceinline__ int wrap(int a, int N) { return a < 0 ? a + N : (a >= N ? a - N : a); }
+
+// Uniform site index in [0, N) from a 32-bit word.
+__device__ __forceinline__ int rand_site(uint32_t w, int N) {
+    return (int)(((uint64_t)w * (uint32_t)N) >> 32);
+}
+
+__global__ void worm_kernel(const float* __restrict__ phi, int* __restrict__ n,
+                            float* __restrict__ hist, float* __restrict__ stat,
+                            uint32_t* __restrict__ log, long long log_words, int B, int N,
+                            float kappa, int closed_always, int worms, long long cap, int rollback,
+                            uint2 key) {
+    const int chain = blockIdx.x * blockDim.x + threadIdx.x;
+    if (chain >= B) return;
+    const long long NN = (long long)N * N;
+    const float* ph = phi + chain * NN;
+    int* nc = n + chain * 2 * NN;
+    float* h = hist + chain * NN;
+    uint32_t* lg = rollback ? log + chain * log_words : nullptr;
+
+    float length = 0.f;
+    int truncations = 0;
+    for (int w = 0; w < worms; ++w) {
+        // Counters: (chain, worm, k, even) for the start, (chain, worm, move, odd) per move.
+        const uint4 s0 = philox4x32_10(make_uint4((uint32_t)chain, (uint32_t)w, 0u, 0u), key);
+        const int orientation = (s0.x >> 31) ? 1 : -1;
+        const int tail_t = rand_site(s0.y, N), tail_x = rand_site(s0.z, N);
+        int head_t = tail_t, head_x = tail_x;
+        if (closed_always) {
+            const uint4 s1 = philox4x32_10(make_uint4((uint32_t)chain, (uint32_t)w, 1u, 0u), key);
+            head_t = rand_site(s1.x, N);
+            head_x = rand_site(s1.y, N);
+        }
+        const int start_t = head_t, start_x = head_x;
+
+        bool done = false;
+        long long moves = 0, accepted = 0;
+        while (!done && (cap < 0 || moves < cap)) {
+            const uint4 m = philox4x32_10(
+                make_uint4((uint32_t)chain, (uint32_t)w, (uint32_t)moves,
+                           2u * (uint32_t)(moves >> 32) + 1u), key);
+            const bool closed = closed_always || (head_t == tail_t && head_x == tail_x);
+            done = closed && u24(m.x) >= 0.8f;
+            if (!done) {
+                const int c = (int)(m.y & 3u);
+                const int ld = LINK_DIR[c];
+                const int lt = wrap(head_t + OFF_T[c], N), lx = wrap(head_x + OFF_X[c], N);
+                const int ls = lt * N + lx;
+                const int nb = ld == 0 ? wrap(lt + 1, N) * N + lx : lt * N + wrap(lx + 1, N);
+                int* link = nc + ld * NN + ls;
+                const int dn = orientation * PLAQ[c];
+                const float link_val = (ph[nb] - ph[ls]) - TWO_PI * (float)(*link);
+                const float cr = -TWO_PI * (float)dn;
+                const float dS = 0.5f * kappa * cr * (2.f * link_val + cr);
+                if (u24(m.z) < exp_neg(dS)) {
+                    *link += dn;
+                    head_t = wrap(head_t + MOVE_T[c], N);
+                    head_x = wrap(head_x + MOVE_X[c], N);
+                    if (rollback) {
+                        const long long word = accepted >> 4;
+                        const uint32_t bits = (uint32_t)c << (2 * (accepted & 15));
+                        lg[word] = (accepted & 15) ? (lg[word] | bits) : bits;
+                    }
+                    ++accepted;
+                }
+                h[wrap(head_t - tail_t, N) * N + wrap(head_x - tail_x, N)] += 1.f;
+                length += 1.f;
+            }
+            ++moves;
+        }
+        if (!done && rollback) {
+            // Replay the accepted path from the start plaquette, undoing each Δn.
+            int t = start_t, x = start_x;
+            for (long long i = 0; i < accepted; ++i) {
+                const int c = (int)((lg[i >> 4] >> (2 * (i & 15))) & 3u);
+                const int lt = wrap(t + OFF_T[c], N), lx = wrap(x + OFF_X[c], N);
+                nc[LINK_DIR[c] * NN + lt * N + lx] -= orientation * PLAQ[c];
+                t = wrap(t + MOVE_T[c], N);
+                x = wrap(x + MOVE_X[c], N);
+            }
+            ++truncations;
+        }
+    }
+    stat[2 * chain] = length;
+    stat[2 * chain + 1] = (float)truncations;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Copies n_in into n, then runs `worms` worms per chain in place.  hist
+// (B, N, N) f32 receives the Vortex_Vortex tallies, stat (B, 2) f32 the worm
+// length and the truncation count.  cap < 0 means unbounded; with rollback,
+// log holds log_words 32-bit words per chain (at least ceil(cap / 16)).
+int sv_worms(const float* phi, const int* n_in, int* n, float* hist, float* stat,
+             uint32_t* log, long long log_words, int B, int N, float kappa, int closed_always,
+             int worms, long long cap, int rollback, unsigned long long seed, void* stream_ptr) {
+    cudaStream_t stream = (cudaStream_t)stream_ptr;
+    const size_t NN = (size_t)N * N;
+    cudaError_t e;
+    if ((e = cudaMemcpyAsync(n, n_in, 2 * B * NN * sizeof(int), cudaMemcpyDeviceToDevice, stream))) return e;
+    if ((e = cudaMemsetAsync(hist, 0, B * NN * sizeof(float), stream))) return e;
+    const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+    const int threads = 32;
+    worm_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
+        phi, n, hist, stat, log, log_words, B, N, kappa, closed_always, worms, cap, rollback, key);
+    return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,190 @@
+"""Classic (plaquette) worms: the CUDA kernel and its plain PyTorch twin.
+
+Counterpart of :func:`supervillain_tpu.ops.pallas_worm.classic_worms`.
+:func:`classic_worms` dispatches by device: a CPU batch runs
+:func:`plain_worms` with draws from a ``torch.Generator``, a CUDA batch runs
+the kernel of ``csrc/worm.cu``, and any other device raises.
+
+The plain version is the move rule of
+:class:`supervillain_tpu.generators.villain.ClassicWorm`, advancing all chains
+one move per iteration (a chain that has closed stops drawing), with the draws
+coming from a draw source: a ``torch.Generator`` (:class:`WormDraws`), the JAX
+package's own (tests), or the kernel's Philox stream (:class:`KernelWormDraws`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import calculus as calc
+from . import kernels, philox
+from .sweep import lattice
+
+TWO_PI = 2 * np.pi
+
+# Neighboring-plaquette moves (east, north, west, south) in (t, x), the link
+# each move crosses, and the constraint-restoring Δn sign.
+_MOVES = ((0, -1), (1, 0), (0, 1), (-1, 0))
+_LINK_DIR = (0, 1, 0, 1)
+_LINK_OFF = ((0, 0), (1, 0), (0, 1), (0, 0))
+_PLAQUETTE = (1, 1, -1, -1)
+
+
+class WormDraws:
+    """Draw source of :func:`plain_worms` from a ``torch.Generator``.
+
+    ``start()`` gives each chain's orientation (B,) and tail and head (B, 2);
+    ``move()`` each chain's close uniform, move choice in 0..3 and Metropolis
+    uniform (B,), one call per move."""
+
+    def __init__(self, generator, *, B, N, fdt, device):
+        self.generator, self.B, self.N, self.fdt, self.device = generator, B, N, fdt, device
+
+    def start(self):
+        g, B, dev = self.generator, self.B, self.device
+        orientation = 2 * torch.randint(0, 2, (B,), generator=g, device=dev) - 1
+        tail = torch.randint(0, self.N, (B, 2), generator=g, device=dev)
+        head = torch.randint(0, self.N, (B, 2), generator=g, device=dev)
+        return orientation, tail, head
+
+    def move(self):
+        g, B, dev = self.generator, self.B, self.device
+        u = torch.rand((2, B), generator=g, dtype=self.fdt, device=dev)
+        choice = torch.randint(0, 4, (B,), generator=g, device=dev)
+        return u[0], choice, u[1]
+
+
+class KernelWormDraws:
+    """The draws of one CUDA worm-kernel call seeded with ``seed``, as a draw
+    source of :func:`plain_worms`: Philox-4x32-10 keyed by the seed and
+    countered by (chain, worm, 0 or 1, 0) for a worm's start and (chain, worm,
+    move, odd) for each move, with the kernel's conversions
+    (``csrc/worm.cu``)."""
+
+    def __init__(self, seed, *, B, N, device):
+        self.key = philox.key_of(seed)
+        self.N, self.device = N, device
+        self.chain = torch.arange(B, device=device)
+        self.worm, self.moves = -1, 0
+
+    def _site(self, word):
+        return (word * self.N) >> 32
+
+    def start(self):
+        self.worm += 1
+        self.moves = 0
+        s0 = philox.philox4x32_10((self.chain, self.worm, 0, 0), self.key, self.device)
+        s1 = philox.philox4x32_10((self.chain, self.worm, 1, 0), self.key, self.device)
+        orientation = torch.where((s0[0] >> 31) == 1, 1, -1)
+        tail = torch.stack([self._site(s0[1]), self._site(s0[2])], dim=-1)
+        head = torch.stack([self._site(s1[0]), self._site(s1[1])], dim=-1)
+        return orientation, tail, head
+
+    def move(self):
+        t = self.moves
+        self.moves += 1
+        m = philox.philox4x32_10((self.chain, self.worm, t & philox.MASK, 2 * (t >> 32) + 1),
+                                 self.key, self.device)
+        return philox.u24(m[0]), m[1] & 3, philox.u24(m[2])
+
+
+def plain_worms(phi, n, *, kappa, W, worms, max_worm_moves, draws):
+    """``worms`` classic worms per chain in plain PyTorch, on any device.
+
+    A worm still open after ``max_worm_moves`` moves is rolled back at W != 1
+    (its open configuration violates dn ≡ 0 mod W); at W = 1 it is kept.
+    Returns ``(n, hist, length, truncated)`` like :func:`classic_worms`."""
+    B, _, N, _ = n.shape
+    L = lattice(N)
+    dev, fdt = n.device, phi.dtype
+    n = n.clone()
+    dphi = calc.d(L, 0, phi)
+    moves = torch.tensor(_MOVES, device=dev)
+    link_dir = torch.tensor(_LINK_DIR, device=dev)
+    link_off = torch.tensor(_LINK_OFF, device=dev)
+    plaquette = torch.tensor(_PLAQUETTE, dtype=n.dtype, device=dev)
+    chains = torch.arange(B, device=dev)
+    hist = torch.zeros((B, N, N), dtype=fdt, device=dev)
+    truncated = torch.zeros(B, dtype=fdt, device=dev)
+    rollback = max_worm_moves is not None and W != 1
+
+    for _ in range(worms):
+        orientation, tail, head = draws.start()
+        if W != 1:
+            head = tail
+        change_n = orientation[:, None].to(n.dtype) * plaquette
+        start = n.clone() if rollback else None
+        open_ = torch.ones(B, dtype=torch.bool, device=dev)
+        t = 0
+        while (max_worm_moves is None or t < max_worm_moves) and bool(open_.any()):
+            u_close, choice, u_accept = draws.move()
+            closed = (head == tail).all(dim=-1) | (W == 1)
+            close_now = closed & (u_close >= 0.8)
+
+            next_head = torch.remainder(head + moves[choice], N)
+            ld = link_dir[choice]
+            lpos = torch.remainder(head + link_off[choice], N)
+            at = (chains, ld, lpos[:, 0], lpos[:, 1])
+            link_val = dphi[at] - TWO_PI * n[at].to(fdt)
+            dn = change_n[chains, choice]
+            dnf = dn.to(fdt)
+            dS = (kappa / 2) * (-TWO_PI * dnf) * (2 * link_val - TWO_PI * dnf)
+            accept = (u_accept < torch.clamp(torch.exp(-dS), max=1.0)) & ~close_now & open_
+
+            n[at] = n[at] + torch.where(accept, dn, 0)
+            head = torch.where(accept[:, None], next_head, head)
+            disp = torch.remainder(head - tail, N)
+            tally = (chains, disp[:, 0], disp[:, 1])
+            hist[tally] = hist[tally] + (open_ & ~close_now).to(fdt)
+            open_ = open_ & ~close_now
+            t += 1
+        if rollback:
+            n = torch.where(open_[:, None, None, None], start, n)
+            truncated = truncated + open_.to(fdt)
+    return n, hist, hist.sum(dim=(1, 2)), truncated
+
+
+def classic_worms(phi, n, *, kappa, W, worms=1, max_worm_moves=None, generator):
+    """Run ``worms`` whole classic worms per chain.
+
+    Parameters
+    ----------
+    phi: (B, 1, N, N) float — read only; n: (B, 2, N, N) int
+    max_worm_moves: per-worm move cap (exact rollback at W != 1) or None
+    generator: ``torch.Generator`` — the draws on the CPU, the kernel seed on a GPU
+
+    Returns
+    -------
+    (n, hist, length, truncated): updated links, the summed inline
+    ``Vortex_Vortex`` histogram (B, N, N), the total worm length (B,) and the
+    number of truncated (rolled back) worms (B,).
+    """
+    if phi.device.type == 'cpu':
+        draws = WormDraws(generator, B=n.shape[0], N=n.shape[-1], fdt=phi.dtype, device=phi.device)
+        return plain_worms(phi, n, kappa=kappa, W=W, worms=worms,
+                           max_worm_moves=max_worm_moves, draws=draws)
+    if phi.device.type != 'cuda':
+        raise ValueError(f'classic_worms runs on the CPU or a CUDA device, not {phi.device}')
+
+    B, N = kernels.require_fields(phi, n)
+    cap = -1 if max_worm_moves is None else int(max_worm_moves)
+    rollback = cap >= 0 and W != 1
+    lib = kernels.library()
+    n_out = torch.empty_like(n)
+    hist = torch.empty((B, N, N), dtype=torch.float32, device=phi.device)
+    stat = torch.empty((B, 2), dtype=torch.float32, device=phi.device)
+    log_words = (cap + 15) // 16 if rollback else 0
+    log = torch.empty((B, log_words), dtype=torch.int32, device=phi.device) if rollback else None
+    code = lib.sv_worms(
+        phi.data_ptr(), n.data_ptr(), n_out.data_ptr(), hist.data_ptr(), stat.data_ptr(),
+        None if log is None else log.data_ptr(), log_words, B, N, float(kappa),
+        int(W == 1), int(worms), cap, int(rollback), kernels.seed_from(generator),
+        kernels.stream_handle(phi.device))
+    kernels.check(code, 'classic_worms')
+    classic_worms.launches += 1
+    return n_out, hist, stat[:, 0], stat[:, 1]
+
+
+#: Calls that launched the CUDA kernel (the CPU path never counts).
+classic_worms.launches = 0
