@@ -26,11 +26,38 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    kernel's own Philox draws, from the main path's final state: fields that
    differ on at most 1e-4 of the sites (a flipped Metropolis decision where
    float rounding of ΔS differs), worms that differ on at most 1% of the
-   chains, and inline ActionDensity and WindingSquared within 1e-3.
+   chains, and inline ActionDensity and WindingSquared within 1e-3;
+
+and for the Worldline kernels (B4 sweeps, B5 worms, B6 Hammer):
+
+W1. the sweep kernel against its plain version (N=16, 1024 chains, κ=0.5, W=2
+    and W=∞): per-chain means of inline ActionDensity and acceptance within 5
+    combined standard errors, a one-sweep call's inline ActionDensity equal to
+    (1/2κ)Σ(m − δv/_W)²/Λ of its output to 1e-5 relative, δm = 0 bit for bit;
+W2. the worm kernel and the Hammer against the enumerated distribution of the
+    closed integer forms u = m − δv on a 2×2 lattice (κ=0.4, W=1): χ²/dof < 3.5;
+    at W=2 with a move cap of 8, truncated worms, δm = 0 after rollback and
+    Worm_Length equal to the sum of Spin_Spin;
+W3. duality: the Villain Hammer's ActionDensity against 1 minus the Worldline
+    Hammer's inline ActionDensity (N=8, W=2, κ=0.5, 1024 chains), within 5σ;
+W4. the Worldline main path: ``sample_fused_fleet`` at L=256, 512 chains, κ=0.5,
+    W=2, thin=50, one worm per record (capped at 64·N²), then
+    ``pooled_ensemble``, ``autocorrelation_time`` and ``Bootstrap``; the
+    kernels' launch counts in that run and the kernels' and plain versions'
+    times at that shape;
+W5. each Worldline kernel at the main path's shape against its plain version
+    fed the kernel's own draws, from W4's final state: m and v differ on at
+    most 1e-4 of the links and plaquettes (wrapping-cycle flips counted apart),
+    inline ActionDensity within 1e-3, worms differing on at most 1% of the
+    chains.  The plain worm replays a move per step, so the worms of W5 (and
+    the plain worm's time) run under a cap of WORM_REPLAY_CAP moves, which
+    truncates and rolls back the long ones.
 
 The next-to-last line is a JSON object describing each kernel (its
-``max_abs_err`` from phase 7); the last line is ``{"ok": true, "device": {...}}``.
-Nothing of JAX is imported.
+``max_abs_err`` from the same-draws phases, its launches on its main path, its
+time, its plain version's time and the least time the card could take for the
+same work); the last line is ``{"ok": true, "device": {...}}``.  Nothing of
+JAX is imported.
 """
 
 from __future__ import annotations
@@ -54,6 +81,27 @@ INLINE_RTOL = 1e-5      # one-sweep inline ActionDensity against the recomputed 
 SAME_DRAWS_SITES = 1e-4     # fraction of φ sites or n links that may differ
 SAME_DRAWS_CHAINS = 1e-2    # fraction of chains whose worm may differ
 SAME_DRAWS_INLINE = 1e-3    # |Δ| of a chain's inline ActionDensity or WindingSquared
+WKAPPA = 0.4            # the worldline exact-distribution check (tests/test_exact_distribution.py)
+WORM_REPLAY_CAP = 4096  # worm moves the plain replay and its timing run at L=256
+
+# The least time the card could take for a call (PERF.md): the larger of the
+# bytes it must move (each input read once, each output written once) over the
+# memory rate and the operations it does over the peak rate.  The table of the
+# H100 has no integer rate outside the tensor cores, so integer and float
+# operations are both counted at the float32 CUDA-core rate, which only lowers
+# the bound.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+PHILOX_OPS = 100        # 10 rounds of 4 multiplies, 4 XORs and 2 key adds
+# Operations per unit of work, read off the kernels' sources: a Villain
+# site-update (2 Philox calls, ΔS over 4 links, the draw conversions, the
+# per-sweep inline sums); a Worldline sweep per site (2 plaquette proposals of
+# 1 Philox call and ΔS over 4 links each, the wrapping terms of 2 links and the
+# Σu² of the inline sum); a worm move (1 Philox call, the crossed link's
+# residual and ΔS, the histogram tally).
+OPS_VILLAIN_SITE = 2 * PHILOX_OPS + 42
+OPS_WORLDLINE_SITE = 2 * (PHILOX_OPS + 26) + 12
+OPS_WORM_MOVE = PHILOX_OPS + 25
 
 
 class SmokeFailure(RuntimeError):
@@ -142,16 +190,28 @@ def per_chain_agreement(name, a, b):
 
 
 def time_ms(torch, fn, reps):
-    """Mean milliseconds per call on the card (CUDA events), after one warm-up."""
+    """Mean milliseconds per call on the card (CUDA events), after one warm-up,
+    and the last call's result."""
     fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / reps, out
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by) of a call that moves ``nbytes`` and does ``ops``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def worm_moves(length, truncated, worms):
+    """Moves a worm call made: its tallied moves plus one close move per closed worm."""
+    return float(length.double().sum()) + worms * length.numel() - float(truncated.double().sum())
 
 
 # -- phases --------------------------------------------------------------------
@@ -380,7 +440,7 @@ def phase_main_path(torch, card):
     require(all(np.isfinite(estimate)), f'non-finite estimate {estimate}')
     truncated = float(fleet.columns['Worm_Truncated'].sum())
     frac = truncated / (steps * B)
-    say(f'  ActionDensity = {estimate[0]!r} ± {estimate[1]!r} (τ = {tau}); '
+    say(f'  ActionDensity = {float(estimate[0])!r} ± {float(estimate[1])!r} (τ = {tau}); '
         f'WindingSquared mean {float(fleet.columns["WindingSquared"][cut:].mean())!r}; '
         f'Worm_Length mean {float(fleet.columns["Worm_Length"][cut:].mean())!r}; '
         f'truncated worms {frac!r} (budget {TRUNCATION_BUDGET})')
@@ -397,7 +457,7 @@ def phase_main_path(torch, card):
     wdraws = WormDraws(gdev, B=B, N=N, fdt=torch.float32, device='cuda')
     common = dict(kappa=0.5, W=1)
     cap = 64 * N * N
-    ms = {
+    timed = {
         'sweep': time_ms(torch, lambda: neighborhood_sweeps(
             phi, n, interval_phi=math.pi, interval_n=1, sweeps=thin, generator=host, **common), 5),
         'worm': time_ms(torch, lambda: classic_worms(
@@ -406,17 +466,34 @@ def phase_main_path(torch, card):
             phi, n, interval_phi=math.pi, interval_n=1, sweeps=thin, worms=1,
             max_worm_moves=cap, generator=host, **common), 5),
     }
-    plain_sweep_ms = time_ms(torch, lambda: plain_sweeps(phi, n, sweeps=thin, draws=sdraws, **common), 1)
-    plain_worm_ms = time_ms(torch, lambda: plain_worms(phi, n, worms=1, max_worm_moves=cap,
-                                                       draws=wdraws, **common), 3)
+    ms = {k: t for k, (t, _) in timed.items()}
+    plain_sweep_ms, _ = time_ms(torch, lambda: plain_sweeps(phi, n, sweeps=thin, draws=sdraws,
+                                                             **common), 1)
+    plain_worm_ms, _ = time_ms(torch, lambda: plain_worms(phi, n, worms=1, max_worm_moves=cap,
+                                                          draws=wdraws, **common), 3)
     plain_ms = {'sweep': plain_sweep_ms, 'worm': plain_worm_ms, 'hammer': plain_sweep_ms + plain_worm_ms}
+    # Bounds from this run's inputs: φ f32 and n 2×i32 in and out (24 B a site);
+    # the worm reads φ and n and writes n and its histogram (24 B a site).
+    sites = B * N * N
+    _, _, worm_length, worm_truncated = timed['worm'][1]
+    moves = worm_moves(worm_length, worm_truncated, 1)
+    _, _, _, hammer_inline = timed['hammer'][1]
+    hammer_moves = worm_moves(hammer_inline['Worm_Length'], hammer_inline['Worm_Truncated'], 1)
+    bounds = {
+        'sweep': bound(24 * sites + 12 * B, OPS_VILLAIN_SITE * sites * thin),
+        'worm': bound(24 * sites + 8 * B, OPS_WORM_MOVE * moves),
+        'hammer': bound(28 * sites + 20 * B,
+                        OPS_VILLAIN_SITE * sites * thin + OPS_WORM_MOVE * hammer_moves),
+    }
     su = B * N * N * thin
     say(f'  [{card}] sweep kernel {ms["sweep"]!r} ms per {thin}-sweep call = '
         f'{su / ms["sweep"] * 1e3!r} site-updates/s; plain {plain_ms["sweep"]!r} ms = '
-        f'{su / plain_ms["sweep"] * 1e3!r} site-updates/s')
-    say(f'  [{card}] worm kernel {ms["worm"]!r} ms per call (1 worm/chain); plain {plain_ms["worm"]!r} ms')
-    say(f'  [{card}] hammer {ms["hammer"]!r} ms per call; plain sweep + plain worm {plain_ms["hammer"]!r} ms')
-    return launches, ms, plain_ms, (phi, n)
+        f'{su / plain_ms["sweep"] * 1e3!r} site-updates/s; bound {bounds["sweep"]}')
+    say(f'  [{card}] worm kernel {ms["worm"]!r} ms per call (1 worm/chain, {moves!r} moves); '
+        f'plain {plain_ms["worm"]!r} ms; bound {bounds["worm"]}')
+    say(f'  [{card}] hammer {ms["hammer"]!r} ms per call; plain sweep + plain worm '
+        f'{plain_ms["hammer"]!r} ms; bound {bounds["hammer"]}')
+    return launches, ms, plain_ms, bounds, (phi, n)
 
 
 def differ(a, b):
@@ -497,6 +574,350 @@ def phase_same_draws(torch, final):
     return err
 
 
+# -- the Worldline kernels -------------------------------------------------------
+
+def enumerate_closed_forms(N, cutoff):
+    """All integer 1-forms u with δu = 0 and |u_ℓ| ≤ cutoff on the N×N lattice,
+    with their Boltzmann weights exp(−Σu²/2κ) (tests/test_exact_distribution.py)."""
+    vals = np.arange(-cutoff, cutoff + 1, dtype=np.int8)
+    grids = np.meshgrid(*([vals] * (2 * N * N)), indexing='ij')
+    forms = np.stack([g.ravel() for g in grids], axis=-1).reshape(-1, 2, N, N)
+    div = np.zeros((forms.shape[0], N, N), dtype=np.int16)
+    for mu in range(2):
+        div += forms[:, mu] - np.roll(forms[:, mu], +1, axis=mu + 1)
+    forms = forms[np.abs(div).max(axis=(1, 2)) == 0]
+    weights = np.exp(-(forms.astype(np.float64) ** 2).sum(axis=(1, 2, 3)) / (2 * WKAPPA))
+    return forms, weights
+
+
+def chi2_of_closed_forms(samples):
+    """χ²/dof of sampled u (draws, 2, 2, 2) against the exact W=1 distribution."""
+    forms, weights = enumerate_closed_forms(2, cutoff=3)
+    prob_of = dict(zip((f.tobytes() for f in forms), weights / weights.sum()))
+    counts = {}
+    for x in samples.astype(np.int8):
+        require(np.abs(x).max() <= 3, 'sampled state outside the enumeration cutoff')
+        k = x.tobytes()
+        require(k in prob_of, 'sampled a state with δu != 0')
+        counts[k] = counts.get(k, 0) + 1
+    chi2, dof = chi2_against(prob_of, counts, len(samples))
+    require(dof >= 5, f'too few populated bins ({dof})')
+    return chi2 / dof
+
+
+def cold_worldline(torch, B, N, W):
+    vdt = torch.float32 if W == float('inf') else torch.int32
+    return (torch.zeros((B, 2, N, N), dtype=torch.int32, device='cuda'),
+            torch.zeros((B, 1, N, N), dtype=vdt, device='cuda'))
+
+
+def divergence_free(torch, m):
+    from supervillain_tpu_torch.ops import calculus
+    from supervillain_tpu_torch.ops.sweep import lattice
+    return bool((calculus.delta(lattice(m.shape[-1]), 1, m) == 0).all())
+
+
+def phase_worldline_sweep(torch):
+    from supervillain_tpu_torch.ops.worldline import (WorldlineSweepDraws, action_density,
+                                                      plain_worldline_sweeps, worldline_sweeps)
+
+    N, B, kappa = 16, 1024, 0.5
+    for W in (2, float('inf')):
+        say(f'== phase W1: worldline sweep kernel against its plain version (N={N}, {B} chains, '
+            f'κ={kappa}, W={W})')
+        winf = W == float('inf')
+        host = torch.Generator().manual_seed(21)
+        draws = WorldlineSweepDraws(torch.Generator(device='cuda').manual_seed(22), B=B, N=N,
+                                    interval_v=1.0 if winf else 1, interval_t=1, interval_w=1,
+                                    winf=winf, fdt=torch.float32, idt=torch.int32, device='cuda')
+
+        def kernel(m, v, sweeps):
+            return worldline_sweeps(m, v, kappa=kappa, W=W, sweeps=sweeps, generator=host)
+
+        def plain(m, v, sweeps):
+            return plain_worldline_sweeps(m, v, kappa=kappa, W=W, sweeps=sweeps, draws=draws)
+
+        records = {}
+        for label, fn in (('kernel', kernel), ('plain', plain)):
+            m, v = cold_worldline(torch, B, N, W)
+            for _ in range(10):                  # 1000 thermalization sweeps
+                m, v, _, _ = fn(m, v, 100)
+            ad, acc = [], []
+            for _ in range(40):
+                m, v, a, inline = fn(m, v, 25)
+                ad.append(inline['ActionDensity'].double().cpu().numpy())
+                acc.append((a / ((2 * N * N + 2 * N) * 25)).double().cpu().numpy())
+            records[label] = {'ActionDensity': np.array(ad), 'acceptance': np.array(acc)}
+            require(divergence_free(torch, m), f'{label}: δm != 0')
+            if label == 'kernel':
+                final = (m, v)
+        for k in records['kernel']:
+            per_chain_agreement(k, records['kernel'][k], records['plain'][k])
+
+        m1, v1, _, inline = kernel(*final, 1)
+        require(divergence_free(torch, m1), 'the sweep kernel broke δm = 0')
+        recomputed = action_density(m1.long(), v1.double() if winf else v1.long(), kappa, W)
+        rel = ((inline['ActionDensity'].double() - recomputed).abs() / recomputed.abs()).max().item()
+        say(f'  δm = 0 bit for bit; one-sweep inline ActionDensity vs (1/2κ)Σu²/Λ of the output: '
+            f'max relative error {rel!r} (bound {INLINE_RTOL})')
+        require(rel < INLINE_RTOL, 'inline ActionDensity disagrees with the output fields')
+
+
+def phase_worldline_exact(torch):
+    from supervillain_tpu_torch.ops import calculus
+    from supervillain_tpu_torch.ops.sweep import lattice
+    from supervillain_tpu_torch.ops.worldline_hammer import worldline_hammer_sweeps
+    from supervillain_tpu_torch.ops.worldline_worm import worldline_worms
+
+    say(f'== phase W2: worldline worm and Hammer kernels against the exact distribution '
+        f'(N=2, κ={WKAPPA})')
+    N, B = 2, 256
+    host = torch.Generator().manual_seed(23)
+    L = lattice(N)
+
+    def closed_u(m, v):
+        return (m.long() - calculus.delta(L, 2, v.long())).cpu().numpy()
+
+    for name in ('worm', 'hammer'):
+        m, v = cold_worldline(torch, B, N, 1)
+        samples = []
+        for i in range(120):
+            if name == 'worm':              # v stays 0: u = m, and the worm is ergodic at W=1
+                m, hist, length, _ = worldline_worms(m, v, kappa=WKAPPA, W=1, worms=8,
+                                                     generator=host)
+            else:
+                m, v, _, inline = worldline_hammer_sweeps(m, v, kappa=WKAPPA, W=1, sweeps=2,
+                                                          worms=1, generator=host)
+                hist, length = inline['Spin_Spin'], inline['Worm_Length']
+            require(torch.equal(length, hist.sum(dim=(1, 2))),
+                    'Worm_Length differs from the sum of Spin_Spin')
+            if i >= 20:
+                samples.append(closed_u(m, v))
+        ratio = chi2_of_closed_forms(np.concatenate(samples))
+        say(f'  W=1 {name}: χ²/dof = {ratio:.3f} over {len(samples) * B} draws (bound {CHI2_BOUND})')
+        require(ratio < CHI2_BOUND, f'the worldline {name} misses the exact distribution')
+
+    m, v = cold_worldline(torch, B, N, 2)
+    truncated = 0.0
+    for _ in range(40):
+        m, v, _, inline = worldline_hammer_sweeps(m, v, kappa=WKAPPA, W=2, sweeps=1, worms=4,
+                                                  max_worm_moves=8, generator=host)
+        truncated += float(inline['Worm_Truncated'].sum())
+        require(torch.equal(inline['Worm_Length'], inline['Spin_Spin'].sum(dim=(1, 2))),
+                'Worm_Length differs from the sum of Spin_Spin')
+        require(divergence_free(torch, m), 'a truncated worm left δm != 0')
+    say(f'  W=2 cap 8: {truncated:.0f} truncated worms, δm = 0 bit for bit after rollback')
+    require(truncated > 0, 'no worm was truncated: the rollback went untested')
+
+
+def phase_duality(torch):
+    from supervillain_tpu_torch.ops.hammer import hammer_sweeps
+    from supervillain_tpu_torch.ops.worldline_hammer import worldline_hammer_sweeps
+
+    N, B, kappa, W = 8, 1024, 0.5, 2
+    say(f'== phase W3: duality, Villain Hammer against Worldline Hammer (N={N}, {B} chains, '
+        f'κ={kappa}, W={W})')
+    # The Villain sweep draws Δn on all 4 links of a site; zero-inflated (p_n)
+    # they leave most proposals pure Δφ, which thermalizes it in ~100 sweeps
+    # instead of thousands, with the same equilibrium.
+    host = torch.Generator().manual_seed(25)
+    cap = 64 * N * N
+    phi = torch.zeros((B, 1, N, N), dtype=torch.float32, device='cuda')
+    n = torch.zeros((B, 2, N, N), dtype=torch.int32, device='cuda')
+    m, v = cold_worldline(torch, B, N, W)
+    villain, worldline = [], []
+    for i in range(80):
+        phi, n, _, vi = hammer_sweeps(phi, n, kappa=kappa, W=W, interval_phi=math.pi,
+                                      interval_n=1, p_n=0.1, sweeps=20, worms=1,
+                                      max_worm_moves=cap, generator=host)
+        m, v, _, wi = worldline_hammer_sweeps(m, v, kappa=kappa, W=W, sweeps=20, worms=1,
+                                              max_worm_moves=cap, generator=host)
+        if i >= 20:
+            villain.append(vi['ActionDensity'].double().cpu().numpy())
+            worldline.append(1 - wi['ActionDensity'].double().cpu().numpy())
+    per_chain_agreement('ActionDensity: Villain against 1 − Worldline inline',
+                        np.array(villain), np.array(worldline))
+
+
+def phase_worldline_main_path(torch, card):
+    import supervillain_tpu_torch as sv
+    from supervillain_tpu_torch.ops.worldline import (WorldlineSweepDraws, plain_worldline_sweeps,
+                                                      worldline_sweeps)
+    from supervillain_tpu_torch.ops.worldline_hammer import worldline_hammer_sweeps
+    from supervillain_tpu_torch.ops.worldline_worm import (WorldlineWormDraws,
+                                                           plain_worldline_worms, worldline_worms)
+    from supervillain_tpu_torch.parallel import TRUNCATION_BUDGET
+
+    N, B, thin, steps, cut, kappa, W = 256, 512, 50, 30, 10, 0.5, 2
+    cap = 64 * N * N
+    say(f'== phase W4: worldline main path (L={N}, {B} chains, κ={kappa}, W={W}, thin={thin}, '
+        f'worms=1 capped at {cap}, {steps} records, cut {cut})')
+    S = sv.Worldline(sv.Lattice2D(N), kappa, W=W)
+    counters = {'worldline_sweep': worldline_sweeps, 'worldline_worm': worldline_worms,
+                'worldline_hammer': worldline_hammer_sweeps}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet = sv.sample_fused_fleet(S, chains=B, steps=steps, thin=thin, worms=1, seed=0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    say(f'  sample_fused_fleet: {elapsed!r} s, {elapsed / steps!r} s per record; '
+        f'launches {launches}')
+    require(all(v > 0 for v in launches.values()), f'a kernel of the path never launched: {launches}')
+
+    for k in ('ActionDensity', 'Worm_Length', 'Spin_Spin', 'Worm_Truncated'):
+        col = fleet.columns[k]
+        require(col.shape[:2] == (steps, B) and np.isfinite(col).all(), f'bad column {k}')
+    require(np.array_equal(fleet.columns['Worm_Length'], fleet.columns['Spin_Spin'].sum(axis=(2, 3))),
+            'Worm_Length differs from the sum of Spin_Spin')
+    final = {k: torch.as_tensor(x, device='cuda') for k, x in fleet.final.items()}
+    require(divergence_free(torch, final['m']), 'δm != 0 at the end of the main path')
+    e = fleet.pooled_ensemble(cut)
+    tau = e.autocorrelation_time()
+    estimate = sv.Bootstrap(e.every(tau), draws=200, seed=0).estimate('ActionDensity')
+    require(all(np.isfinite(estimate)), f'non-finite estimate {estimate}')
+    lengths = fleet.columns['Worm_Length'][cut:]
+    frac = float(fleet.columns['Worm_Truncated'].sum()) / (steps * B)
+    say(f'  inline ActionDensity = {float(estimate[0])!r} ± {float(estimate[1])!r} (τ = {tau}), '
+        f'so the registry ActionDensity = {1 - float(estimate[0])!r}; Worm_Length mean '
+        f'{float(lengths.mean())!r}, largest {float(lengths.max())!r}; truncated worms {frac!r} '
+        f'(budget {TRUNCATION_BUDGET})')
+    if frac > TRUNCATION_BUDGET:
+        say('  WARNING: truncated-worm fraction above the budget')
+    del fleet, e
+
+    # Times at the main path's shape, from its final state.
+    m, v = final['m'], final['v']
+    host = torch.Generator().manual_seed(27)
+    gdev = torch.Generator(device='cuda').manual_seed(28)
+    common = dict(kappa=kappa, W=W)
+    timed = {
+        'worldline_sweep': time_ms(torch, lambda: worldline_sweeps(
+            m, v, sweeps=thin, generator=host, **common), 5),
+        'worldline_worm': time_ms(torch, lambda: worldline_worms(
+            m, v, worms=1, max_worm_moves=cap, generator=host, **common), 5),
+        'worldline_hammer': time_ms(torch, lambda: worldline_hammer_sweeps(
+            m, v, sweeps=thin, worms=1, max_worm_moves=cap, generator=host, **common), 5),
+    }
+    ms = {k: t for k, (t, _) in timed.items()}
+    sdraws = WorldlineSweepDraws(gdev, B=B, N=N, interval_v=1, interval_t=1, interval_w=1,
+                                 winf=False, fdt=torch.float32, idt=torch.int32, device='cuda')
+    wdraws = WorldlineWormDraws(gdev, B=B, N=N, fdt=torch.float32, device='cuda')
+    plain_sweep_ms, _ = time_ms(torch, lambda: plain_worldline_sweeps(
+        m, v, sweeps=thin, draws=sdraws, **common), 1)
+    plain_worm_ms, (_, _, plain_length, plain_truncated) = time_ms(torch, lambda: plain_worldline_worms(
+        m, v, worms=1, max_worm_moves=WORM_REPLAY_CAP, draws=wdraws, **common), 1)
+    capped_ms, _ = time_ms(torch, lambda: worldline_worms(
+        m, v, worms=1, max_worm_moves=WORM_REPLAY_CAP, generator=host, **common), 5)
+    plain_ms = {'worldline_sweep': plain_sweep_ms, 'worldline_worm': plain_worm_ms,
+                'worldline_hammer': plain_sweep_ms + plain_worm_ms}
+
+    # Bounds from this run's inputs: m 2×i32 and v i32 in and out (24 B a site);
+    # the worm reads m and v and writes m and its histogram (24 B a site).
+    sites = B * N * N
+    _, _, worm_length, worm_truncated = timed['worldline_worm'][1]
+    moves = worm_moves(worm_length, worm_truncated, 1)
+    hammer_inline = timed['worldline_hammer'][1][3]
+    hammer_moves = worm_moves(hammer_inline['Worm_Length'], hammer_inline['Worm_Truncated'], 1)
+    bounds = {
+        'worldline_sweep': bound(24 * sites + 12 * B, OPS_WORLDLINE_SITE * sites * thin),
+        'worldline_worm': bound(24 * sites + 8 * B, OPS_WORM_MOVE * moves),
+        'worldline_hammer': bound(28 * sites + 20 * B,
+                                  OPS_WORLDLINE_SITE * sites * thin + OPS_WORM_MOVE * hammer_moves),
+    }
+    su = sites * thin
+    say(f'  [{card}] worldline sweep kernel {ms["worldline_sweep"]!r} ms per {thin}-sweep call = '
+        f'{su / ms["worldline_sweep"] * 1e3!r} site-updates/s; plain {plain_sweep_ms!r} ms; '
+        f'bound {bounds["worldline_sweep"]}')
+    say(f'  [{card}] worldline worm kernel {ms["worldline_worm"]!r} ms per call (1 worm/chain, '
+        f'{moves!r} moves, longest worm {float(worm_length.max())!r}); bound '
+        f'{bounds["worldline_worm"]}')
+    plain_moves = worm_moves(plain_length, plain_truncated, 1)
+    say(f'  [{card}] with worms capped at {WORM_REPLAY_CAP} moves: worm kernel {capped_ms!r} ms, '
+        f'plain worm {plain_worm_ms!r} ms ({plain_moves!r} moves, '
+        f'{float(plain_truncated.sum())!r} of {B} worms truncated)')
+    say(f'  [{card}] worldline hammer {ms["worldline_hammer"]!r} ms per call; plain sweep + plain '
+        f'capped worm {plain_ms["worldline_hammer"]!r} ms; bound {bounds["worldline_hammer"]}')
+    return launches, ms, plain_ms, bounds, (m, v)
+
+
+def compare_worldline_sweeps(name, got, want):
+    """Sweep outputs (m, v, accepted, inline) of a kernel and its plain twin."""
+    diff = got[0] != want[0]
+    N = diff.shape[-1]
+    cycles = int(diff[:, 0].all(dim=1).sum()) + int(diff[:, 1].all(dim=2).sum())
+    links = float(diff.double().mean())
+    plaquettes = float((got[1] != want[1]).double().mean())
+    inline = float((got[3]['ActionDensity'] - want[3]['ActionDensity']).abs().max())
+    say(f'  {name}: m differs at {links!r} of the links ({cycles} whole wrapping cycles, '
+        f'{int(diff.sum()) - cycles * N} other links), v at {plaquettes!r} of the plaquettes '
+        f'(bound {SAME_DRAWS_SITES}); max |Δ inline ActionDensity| {inline!r} '
+        f'(bound {SAME_DRAWS_INLINE})')
+    require(links <= SAME_DRAWS_SITES and plaquettes <= SAME_DRAWS_SITES,
+            f'{name}: kernel and plain version part on the same draws')
+    require(inline <= SAME_DRAWS_INLINE, f'{name}: inline ActionDensity disagrees')
+    return inline
+
+
+def phase_worldline_same_draws(torch, final):
+    from supervillain_tpu_torch.ops import kernels
+    from supervillain_tpu_torch.ops.worldline import (KernelWorldlineSweepDraws,
+                                                      plain_worldline_sweeps, worldline_sweeps)
+    from supervillain_tpu_torch.ops.worldline_hammer import worldline_hammer_sweeps
+    from supervillain_tpu_torch.ops.worldline_worm import (KernelWorldlineWormDraws,
+                                                           plain_worldline_worms, worldline_worms)
+
+    m, v = final
+    B, N, thin, kappa, W = m.shape[0], m.shape[-1], 50, 0.5, 2
+    say(f'== phase W5: worldline kernels against their plain versions on the kernels\' draws '
+        f'(L={N}, {B} chains, {thin} sweeps, 1 worm capped at {WORM_REPLAY_CAP} moves, from '
+        f'W4\'s final state)')
+    worm_args = dict(kappa=kappa, W=W, worms=1, max_worm_moves=WORM_REPLAY_CAP)
+
+    def seeds(seed, count):
+        g = torch.Generator().manual_seed(seed)
+        return [kernels.seed_from(g) for _ in range(count)]
+
+    def plain_worm(m, v, seed):
+        return plain_worldline_worms(m, v, draws=KernelWorldlineWormDraws(seed, B=B, N=N,
+                                                                          device='cuda'),
+                                     **worm_args)
+
+    # The Hammer's sweep section draws the first seed of its generator, as the
+    # sweep kernel does, so its output is the sweep kernel's: one plain sweep
+    # replay serves both, and the Hammer's worm is replayed from the state the
+    # kernels' sweep section left (which keeps the sweep's own partings out of
+    # the worm's comparison).
+    err = {}
+    got_sweep = worldline_sweeps(m, v, kappa=kappa, W=W, sweeps=thin,
+                                 generator=torch.Generator().manual_seed(31))
+    s_sweep, s_worm = seeds(31, 2)
+    draws = KernelWorldlineSweepDraws(s_sweep, B=B, N=N, interval_v=1, interval_t=1,
+                                      interval_w=1, winf=False, fdt=torch.float32,
+                                      idt=torch.int32, device='cuda')
+    want = plain_worldline_sweeps(m, v, kappa=kappa, W=W, sweeps=thin, draws=draws)
+    err['worldline_sweep'] = compare_worldline_sweeps('worldline sweep', got_sweep, want)
+
+    got_worm = worldline_worms(m, v, generator=torch.Generator().manual_seed(32), **worm_args)
+    err['worldline_worm'] = compare_worms('worldline worm', got_worm,
+                                          plain_worm(m, v, *seeds(32, 1)))
+
+    got = worldline_hammer_sweeps(m, v, kappa=kappa, W=W, sweeps=thin, worms=1,
+                                  max_worm_moves=WORM_REPLAY_CAP,
+                                  generator=torch.Generator().manual_seed(31))
+    require(torch.equal(got[1], got_sweep[1]) and torch.equal(got[2], got_sweep[2]),
+            'the Hammer\'s sweep section differs from the sweep kernel on the same seed')
+    worm = plain_worm(got_sweep[0], got_sweep[1], s_worm)
+    err_sweep = compare_worldline_sweeps('worldline hammer', (got_sweep[0], *got[1:]), want)
+    err_worm = compare_worms('worldline hammer',
+                             (got[0], got[3]['Spin_Spin'], got[3]['Worm_Length']), worm)
+    err['worldline_hammer'] = max(err_sweep, err_worm)
+    torch.cuda.synchronize()
+    return err
+
+
 def main():
     import torch
 
@@ -510,18 +931,35 @@ def main():
     phase_sweep(torch)
     phase_worm(torch)
     phase_invariants(torch)
-    launches, ms, plain_ms, final = phase_main_path(torch, card)
+    launches, ms, plain_ms, bounds, final = phase_main_path(torch, card)
     err = phase_same_draws(torch, final)
+    del final
+    phase_worldline_sweep(torch)
+    phase_worldline_exact(torch)
+    phase_duality(torch)
+    w_launches, w_ms, w_plain_ms, w_bounds, w_final = phase_worldline_main_path(torch, card)
+    err |= phase_worldline_same_draws(torch, w_final)
+    launches |= w_launches
+    ms |= w_ms
+    plain_ms |= w_plain_ms
+    bounds |= w_bounds
 
     sources = {
         'sweep': ('supervillain_tpu_torch/csrc/sweep.cu', 'supervillain_tpu/ops/pallas_sweep.py:424'),
         'worm': ('supervillain_tpu_torch/csrc/worm.cu', 'supervillain_tpu/ops/pallas_worm.py:215'),
         'hammer': ('supervillain_tpu_torch/ops/hammer.py', 'supervillain_tpu/ops/pallas_hammer.py:420'),
+        'worldline_sweep': ('supervillain_tpu_torch/csrc/worldline.cu',
+                            'supervillain_tpu/ops/pallas_worldline.py:427'),
+        'worldline_worm': ('supervillain_tpu_torch/csrc/worldline_worm.cu',
+                           'supervillain_tpu/ops/pallas_worldline_hammer.py:241'),
+        'worldline_hammer': ('supervillain_tpu_torch/ops/worldline_hammer.py',
+                             'supervillain_tpu/ops/pallas_worldline_hammer.py:412'),
     }
     report = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': src, 'replaces': replaces,
          'launches': launches[name], 'max_abs_err': err[name], 'ms': ms[name],
-         'plain_ms': plain_ms[name]}
+         'plain_ms': plain_ms[name], 'bound_ms': bounds[name][0], 'bound_by': bounds[name][1],
+         'library_ms': None}
         for name, (src, replaces) in sources.items()]}
     say(f'card: {card}')
     say(json.dumps(report))

@@ -1,4 +1,4 @@
-// Counter-based random numbers shared by the sweep and worm kernels.
+// Counter-based random numbers shared by the kernels.
 //
 // Philox-4x32-10 (Salmon et al., SC'11): four 32-bit words per call, a pure
 // function of a 128-bit counter and a 64-bit key.  The kernels key it with the
@@ -35,5 +35,12 @@ __device__ __forceinline__ float exp_neg(float x) {
 }
 
 constexpr float TWO_PI = 6.28318530717958647692f;
+
+// XORed into the launch seed to key the Worldline kernels (ops/philox.py
+// WORLDLINE_SALT), so a Villain and a Worldline call never share draws.
+__host__ __device__ __forceinline__ uint2 worldline_key(unsigned long long seed) {
+    const unsigned long long k = seed ^ 0x243F6A8885A308D3ull;
+    return make_uint2((uint32_t)k, (uint32_t)(k >> 32));
+}
 
 }  // namespace sv

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .configurations import Configurations
+from .device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -36,14 +37,16 @@ class Ensemble:
             self.weight = np.ones(len(configurations))
         return self
 
-    def generate(self, steps, generator, start='cold', seed=0, device='cpu',
+    def generate(self, steps, generator, start='cold', seed=0, device='cuda',
                  progress=_no_op, starting_index=0, index_stride=1):
         """Run the chain for ``steps`` configurations.
 
         ``generator`` provides ``step(torch_generator, cfg, stats)``; ``seed``
         seeds a ``torch.Generator`` on ``device``, where the chain runs.
-        ``start`` is ``'cold'`` or a configuration dict (moved to ``device``)."""
+        ``start`` is ``'cold'`` or a configuration dict (moved to ``device``).
+        Without a card, pass ``device='cpu'``."""
         S = self.Action
+        device = resolve_device(device)
         rng = torch.Generator(device=device).manual_seed(int(seed))
         if start == 'cold':
             cfg = S.initial(device)

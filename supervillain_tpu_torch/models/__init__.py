@@ -1,3 +1,4 @@
 from .villain import Villain
+from .worldline import Worldline
 
-__all__ = ['Villain']
+__all__ = ['Villain', 'Worldline']

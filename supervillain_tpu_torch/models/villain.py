@@ -10,16 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import field_dtypes, resolve_device
 from ..ops import Lattice
 from ..ops import calculus as calc
-
-
-def field_dtypes(device):
-    """(float, int) field dtypes for a device: f32/i32 on a GPU, where the kernels
-    run, and f64/i64 on the CPU, where the port is held against the JAX package."""
-    if torch.device(device).type == 'cuda':
-        return torch.float32, torch.int32
-    return torch.float64, torch.int64
 
 
 class Villain:
@@ -70,8 +63,9 @@ class Villain:
         r"""Per-link action density ``(κ/2)(dφ - 2πn)²`` as a 1-form."""
         return (self.kappa / 2) * self.links(phi, n) ** 2
 
-    def initial(self, device='cpu'):
-        """The cold (all-zero) configuration, in :func:`field_dtypes` of ``device``."""
+    def initial(self, device='cuda'):
+        """The cold (all-zero) configuration on ``device``, in its :func:`field_dtypes`."""
+        device = resolve_device(device)
         fdt, idt = field_dtypes(device)
         L = self.Lattice
         return {'phi': torch.zeros(L.form_shape(0), dtype=fdt, device=device),

@@ -26,9 +26,15 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P, _I, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_ulonglong, ctypes.c_float)
+_WORLDLINE_SWEEPS = [_P] * 7 + [_I, _I, _I, _F, _F, _F, _I, _I, _ULL, _P]
+_WORLDLINE_WORMS = [_P] * 6 + [_LL, _I, _I, _F, _F, _I, _LL, _ULL, _P]
 _SIGNATURES = {
     'sv_sweeps': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _I, _F, _ULL, _P],
     'sv_worms': [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _I, _LL, _I, _ULL, _P],
+    'sv_worldline_sweeps': _WORLDLINE_SWEEPS,
+    'sv_worldline_sweeps_winf': _WORLDLINE_SWEEPS,
+    'sv_worldline_worms': _WORLDLINE_WORMS,
+    'sv_worldline_worms_winf': _WORLDLINE_WORMS,
 }
 
 _library = None
@@ -118,22 +124,38 @@ def seed_from(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2 ** 63 - 1, (), generator=generator, device=generator.device))
 
 
-def require_fields(phi, n):
-    """Validate a chain batch for the kernels: φ (B, 1, N, N) float32 and n
-    (B, 2, N, N) int32, contiguous, on one CUDA device, N even."""
-    if phi.device.type != 'cuda' or n.device != phi.device:
-        raise ValueError(f'kernels need phi and n on one CUDA device, got {phi.device} and {n.device}')
-    if phi.dtype != torch.float32 or n.dtype != torch.int32:
-        raise TypeError(f'kernels need float32 phi and int32 n, got {phi.dtype} and {n.dtype}')
-    if phi.dim() != 4 or phi.shape[1] != 1 or phi.shape[2] != phi.shape[3]:
-        raise ValueError(f'phi must be (B, 1, N, N), got {tuple(phi.shape)}')
-    B, _, N, _ = phi.shape
-    if tuple(n.shape) != (B, 2, N, N):
-        raise ValueError(f'n must be (B, 2, N, N) = {(B, 2, N, N)}, got {tuple(n.shape)}')
+def _require_batch(first, second, dtypes, components):
+    """Validate a chain batch of two fields ``(name, tensor)`` for the kernels:
+    (B, c, N, N) of the given dtypes and component counts, contiguous, on one
+    CUDA device, N even.  Returns (B, N)."""
+    (na, a), (nb, b) = first, second
+    if a.device.type != 'cuda' or b.device != a.device:
+        raise ValueError(f'kernels need {na} and {nb} on one CUDA device, got {a.device} and {b.device}')
+    if (a.dtype, b.dtype) != dtypes:
+        da, db = (str(d).removeprefix('torch.') for d in dtypes)
+        raise TypeError(f'kernels need {da} {na} and {db} {nb}, got {a.dtype} and {b.dtype}')
+    ca, cb = components
+    if a.dim() != 4 or a.shape[1] != ca or a.shape[2] != a.shape[3]:
+        raise ValueError(f'{na} must be (B, {ca}, N, N), got {tuple(a.shape)}')
+    B, _, N, _ = a.shape
+    if tuple(b.shape) != (B, cb, N, N):
+        raise ValueError(f'{nb} must be (B, {cb}, N, N) = {(B, cb, N, N)}, got {tuple(b.shape)}')
     if N < 2 or N % 2 != 0:
         raise ValueError(f'kernels need an even N >= 2, got N={N}')
     if 2 * B * N * N >= 2 ** 31:
         raise ValueError(f'{B} chains of N={N} exceed the kernels\' 32-bit site indexing')
-    if not (phi.is_contiguous() and n.is_contiguous()):
-        raise ValueError('kernels need contiguous phi and n')
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f'kernels need contiguous {na} and {nb}')
     return B, N
+
+
+def require_fields(phi, n):
+    """A Villain chain batch: φ (B, 1, N, N) float32 and n (B, 2, N, N) int32."""
+    return _require_batch(('phi', phi), ('n', n), (torch.float32, torch.int32), (1, 2))
+
+
+def require_worldline_fields(m, v, W):
+    """A Worldline chain batch: m (B, 2, N, N) int32 and v (B, 1, N, N), int32
+    at finite W and float32 at W = inf."""
+    vdt = torch.float32 if W == float('inf') else torch.int32
+    return _require_batch(('m', m), ('v', v), (torch.int32, vdt), (2, 1))

@@ -3,9 +3,9 @@
 Bit for bit the generator of ``csrc/philox.cuh`` (Salmon et al., SC'11).
 32-bit words are held in int64 tensors; the 32x32-bit products are split into
 16-bit halves so that no intermediate leaves the int64 range.  Fed through the
-draw sources :class:`..sweep.KernelSweepDraws` and
-:class:`..worm.KernelWormDraws`, it lets the plain versions repeat a kernel
-call draw for draw, on any device.
+draw sources :class:`..sweep.KernelSweepDraws`, :class:`..worm.KernelWormDraws`
+and their Worldline counterparts, it lets the plain versions repeat a kernel call
+draw for draw, on any device.
 """
 
 from __future__ import annotations
@@ -15,6 +15,10 @@ import torch
 MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
+
+#: XORed into a kernel seed to key the Worldline kernels (``csrc/philox.cuh``),
+#: so that a Villain and a Worldline call with one seed never share draws.
+WORLDLINE_SALT = 0x243F6A8885A308D3
 
 
 def _mulhilo(m: int, x):
@@ -28,6 +32,11 @@ def _mulhilo(m: int, x):
 def key_of(seed: int):
     """The (low, high) 32-bit key words of a 64-bit kernel seed."""
     return seed & MASK, (seed >> 32) & MASK
+
+
+def worldline_key(seed: int):
+    """The key words of the Worldline kernels for a 64-bit kernel seed."""
+    return key_of(seed ^ WORLDLINE_SALT)
 
 
 def philox4x32_10(counter, key, device='cpu'):

@@ -10,12 +10,17 @@ import math
 import pytest
 import torch
 
-from supervillain_tpu_torch.interop import villain_action
+from supervillain_tpu_torch.interop import villain_action, worldline_action
 from supervillain_tpu_torch.ops import calculus, kernels
 from supervillain_tpu_torch.ops.hammer import hammer_sweeps
 from supervillain_tpu_torch.ops.sweep import (KernelSweepDraws, lattice, neighborhood_sweeps,
                                               plain_sweeps)
 from supervillain_tpu_torch.ops.worm import KernelWormDraws, classic_worms, plain_worms
+from supervillain_tpu_torch.ops.worldline import (KernelWorldlineSweepDraws,
+                                                  plain_worldline_sweeps, worldline_sweeps)
+from supervillain_tpu_torch.ops.worldline_hammer import worldline_hammer_sweeps
+from supervillain_tpu_torch.ops.worldline_worm import (KernelWorldlineWormDraws,
+                                                       plain_worldline_worms, worldline_worms)
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +124,101 @@ def test_worm_rollback_restores_n_bitwise(cuda):
     assert torch.equal(length, hist.sum(dim=(1, 2)))
     S = villain_action(8, 0.1, 2)
     assert all(S.valid({'n': n_out[b]}) for b in range(128))
+
+
+# -- the Worldline kernels (B4–B6) ---------------------------------------------
+
+def _cold_worldline(B, N, W, device):
+    vdt = torch.float32 if W == float('inf') else torch.int32
+    return (torch.zeros((B, 2, N, N), dtype=torch.int32, device=device),
+            torch.zeros((B, 1, N, N), dtype=vdt, device=device))
+
+
+def _worldline_sweeps(m, v, W, sweeps, seed):
+    return worldline_sweeps(m, v, kappa=0.5, W=W, interval_v=1, sweeps=sweeps,
+                            generator=torch.Generator().manual_seed(seed))
+
+
+def test_worldline_kernels_reject_what_they_do_not_take(cuda):
+    m, v = _cold_worldline(2, 6, 2, cuda)
+    with pytest.raises(ValueError, match='even N'):
+        _worldline_sweeps(*_cold_worldline(2, 5, 2, cuda), 2, 1, 0)
+    with pytest.raises(TypeError, match='int32 m'):
+        _worldline_sweeps(m, v.float(), 2, 1, 0)
+    with pytest.raises(TypeError, match='int32 m'):
+        _worldline_sweeps(m, v, float('inf'), 1, 0)
+    with pytest.raises(ValueError, match='contiguous'):
+        _worldline_sweeps(m.transpose(2, 3), v, 2, 1, 0)
+    with pytest.raises(ValueError, match='v must be'):
+        worldline_worms(m, v[:1], kappa=0.5, W=2, generator=torch.Generator())
+
+
+@pytest.mark.parametrize('W', [1, 2, float('inf')])
+def test_worldline_sweep_kernel_keeps_constraint_and_inline_action(cuda, W):
+    S = worldline_action(8, 0.5, W)
+    m, v = _cold_worldline(64, 8, W, cuda)
+    before = worldline_sweeps.launches
+    for seed in range(3):
+        m, v, accepted, _ = _worldline_sweeps(m, v, W, 7, seed)
+    m1, v1, _, inline = _worldline_sweeps(m, v, W, 1, 9)
+    assert worldline_sweeps.launches == before + 4
+    assert float(accepted.sum()) > 0
+    assert bool((calculus.delta(lattice(8), 1, m1) == 0).all())
+    u = S.links(m1.long(), v1.double() if W == float('inf') else v1.long())
+    torch.testing.assert_close(inline['ActionDensity'].double(),
+                               (u * u).sum(dim=(1, 2, 3)) / 64, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize('W', [1, 2, float('inf')])
+def test_worldline_kernels_repeat_their_plain_versions_on_the_same_draws(cuda, W):
+    """Fed the kernels' own Philox draws, the plain versions repeat the kernel
+    calls up to decisions flipped by float rounding of ΔS."""
+    B, N, kappa, winf = 64, 8, 0.5, W == float('inf')
+    m, v = _cold_worldline(B, N, W, cuda)
+    m, v, _, _ = _worldline_sweeps(m, v, W, 20, 4)
+    got = _worldline_sweeps(m, v, W, 6, 5)
+    draws = KernelWorldlineSweepDraws(kernels.seed_from(torch.Generator().manual_seed(5)), B=B,
+                                      N=N, interval_v=1.0 if winf else 1, interval_t=1,
+                                      interval_w=1, winf=winf, fdt=torch.float32,
+                                      idt=torch.int32, device=cuda)
+    want = plain_worldline_sweeps(m, v, kappa=kappa, W=W, sweeps=6, draws=draws)
+    assert float((got[0] != want[0]).float().mean()) <= 1e-3
+    assert float((got[1] != want[1]).float().mean()) <= 1e-3
+    torch.testing.assert_close(got[3]['ActionDensity'], want[3]['ActionDensity'],
+                               rtol=1e-4, atol=0)
+
+    m, v = got[0], got[1]
+    worm = worldline_worms(m, v, kappa=kappa, W=W, worms=4, max_worm_moves=64,
+                           generator=torch.Generator().manual_seed(6))
+    want = plain_worldline_worms(
+        m, v, kappa=kappa, W=W, worms=4, max_worm_moves=64,
+        draws=KernelWorldlineWormDraws(kernels.seed_from(torch.Generator().manual_seed(6)),
+                                       B=B, N=N, device=cuda))
+    same = [(a == b).reshape(B, -1).all(dim=1) for a, b in zip(worm, want)]
+    assert float(torch.stack(same).all(dim=0).float().mean()) >= 1 - 1 / B
+    assert float(worm[2].sum()) > 0
+
+
+def test_worldline_worm_rollback_restores_m_bitwise_at_w1(cuda):
+    m, v = _cold_worldline(128, 8, 1, cuda)
+    m, v, _, _ = _worldline_sweeps(m, v, 1, 10, 1)
+    m_out, hist, length, truncated = worldline_worms(
+        m, v, kappa=0.5, W=1, worms=1, max_worm_moves=3,
+        generator=torch.Generator().manual_seed(2))
+    rolled = truncated.bool()
+    assert rolled.any() and (~rolled).any()
+    assert torch.equal(m_out[rolled], m[rolled])
+    assert torch.equal(length, hist.sum(dim=(1, 2)))
+    assert bool((calculus.delta(lattice(8), 1, m_out) == 0).all())
+
+
+def test_worldline_hammer_is_deterministic_for_a_seed(cuda):
+    m, v = _cold_worldline(16, 8, 2, cuda)
+    before = worldline_hammer_sweeps.launches
+    a, b = (worldline_hammer_sweeps(m, v, kappa=0.5, W=2, sweeps=5, worms=3, max_worm_moves=32,
+                                    generator=torch.Generator().manual_seed(4)) for _ in range(2))
+    assert worldline_hammer_sweeps.launches == before + 2
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+    for k in a[3]:
+        assert torch.equal(a[3][k], b[3][k])

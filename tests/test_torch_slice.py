@@ -30,7 +30,8 @@ def test_fused_fleet_agrees_with_jax_fused_hammer():
     chain must agree.  Chains are independent: the bootstrap runs over per-chain
     means, and the two must agree within 5 combined σ."""
     port = tsv.sample_fused_fleet(tsv.Villain(tsv.Lattice2D(N), KAPPA, W=1), chains=24,
-                                  steps=STEPS, thin=THIN, worms=1, seed=1)
+                                  steps=STEPS, thin=THIN, worms=1, seed=1,
+                                  device='cpu')
     assert port.columns['Vortex_Vortex'].shape == (STEPS, 24, N, N)
     assert not port.columns['Worm_Truncated'].any()
     pooled = port.pooled_ensemble(CUT)
@@ -77,7 +78,8 @@ def test_cpu_run_never_reports_a_kernel_launch(monkeypatch):
     counters = (neighborhood_sweeps, classic_worms, hammer_sweeps)
     before = [f.launches for f in counters]
     S = tsv.Villain(tsv.Lattice2D(4), 0.5, W=2)
-    fleet = tsv.sample_fused_fleet(S, chains=3, steps=2, thin=2, worms=1, max_worm_moves=4)
+    fleet = tsv.sample_fused_fleet(S, chains=3, steps=2, thin=2, worms=1, max_worm_moves=4,
+                                   device='cpu')
     assert [f.launches for f in counters] == before
     assert all(S.valid({'n': torch.as_tensor(n)}) for n in fleet.final['n'])
 
@@ -100,7 +102,8 @@ def test_ensemble_generate_fused_hammer_on_cpu():
     observables (inline ActionDensity equals the average of the two sweeps'
     action densities, so it differs from the one measured on the kept fields)."""
     S = tsv.Villain(tsv.Lattice2D(6), 0.5, W=float('inf'))
-    e = tsv.Ensemble(S).generate(12, tsv.FusedHammer(S, sweeps_per_step=3), seed=2)
+    e = tsv.Ensemble(S).generate(12, tsv.FusedHammer(S, sweeps_per_step=3), seed=2,
+                                device='cpu')
     assert e.phi.shape == (12, 1, 6, 6) and e.n.shape == (12, 2, 6, 6)
     assert all(S.valid({'n': torch.as_tensor(n)}) for n in e.n)
     assert e.stats['ExactNeighborhoodUpdate']['proposed'] == 12 * 3 * 36

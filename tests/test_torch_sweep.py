@@ -77,7 +77,7 @@ def test_plain_sweep_reproduces_jax_step(update, W, interval, p):
     batched = [{k: torch.as_tensor(np.stack([draws[c][ci][k] for c in range(chains)]))
                 for k in draws[0][ci]} for ci in range(L.n_colors)]
 
-    state = state_from_numpy({'phi': phi0, 'n': n0})
+    state = state_from_numpy({'phi': phi0, 'n': n0}, device='cpu')
     phi, n, accepted, _ = plain_sweeps(
         state['phi'], state['n'], kappa=kappa, W=float('inf') if update == 'exact' else W,
         sweeps=1, draws=lambda color: batched[color])

@@ -27,7 +27,7 @@ def test_action_matches_jax(N, kappa, W):
     ref = jsv.Villain(jsv.Lattice2D(N), kappa, W=W)
     ours = villain_action(N, kappa, W)
     cfgs = _configurations(rng, N, W, 3)
-    state = state_from_numpy(cfgs)
+    state = state_from_numpy(cfgs, device='cpu')
     S_batch = ours(state['phi'], state['n']).numpy()
     for i in range(3):
         phi, n = jnp.asarray(cfgs['phi'][i]), jnp.asarray(cfgs['n'][i])
@@ -76,12 +76,12 @@ def test_inline_column_short_circuits_measurement():
 
 def test_interop_round_trip():
     cfgs = _configurations(np.random.default_rng(5), 4, 2, 3)
-    state = state_from_numpy(cfgs)
+    state = state_from_numpy(cfgs, device='cpu')
     assert state['phi'].dtype == torch.float64 and state['n'].dtype == torch.int64
     back = state_to_numpy(state)
     np.testing.assert_array_equal(back['phi'], cfgs['phi'])
     np.testing.assert_array_equal(back['n'], cfgs['n'])
-    narrow = state_from_numpy(cfgs, dtypes=(torch.float32, torch.int32))
+    narrow = state_from_numpy(cfgs, device='cpu', dtypes=(torch.float32, torch.int32))
     assert narrow['phi'].dtype == torch.float32 and narrow['n'].dtype == torch.int32
     np.testing.assert_array_equal(state_to_numpy(narrow)['n'], cfgs['n'])
     S = villain_action(4, 0.5, 2)

@@ -67,7 +67,7 @@ def test_plain_worm_reproduces_jax_step(W, cap):
         want['length'].append(float(inline['Worm_Length']))
         want['closed'].append(float(stats['ClassicWorm']['acceptance']))
 
-    state = state_from_numpy({'phi': phi0, 'n': n0})
+    state = state_from_numpy({'phi': phi0, 'n': n0}, device='cpu')
     n, hist, length, truncated = plain_worms(
         state['phi'], state['n'], kappa=kappa, W=W, worms=1, max_worm_moves=cap,
         draws=JaxWormDraws(keys, N))
@@ -87,7 +87,7 @@ def test_plain_rollback_restores_n_bitwise():
     S = villain_action(N, 0.1, 2)
     rng = np.random.default_rng(29)
     state = state_from_numpy({'phi': rng.uniform(-1, 1, size=(B, 1, N, N)),
-                              'n': 2 * rng.integers(-1, 2, size=(B, 2, N, N))})
+                              'n': 2 * rng.integers(-1, 2, size=(B, 2, N, N))}, device='cpu')
     g = torch.Generator().manual_seed(31)
     n, hist, length, truncated = plain_worms(
         state['phi'], state['n'], kappa=S.kappa, W=2, worms=1, max_worm_moves=2,
