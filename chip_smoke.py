@@ -44,7 +44,10 @@ W4. the Worldline main path: ``sample_fused_fleet`` at L=256, 512 chains, κ=0.5
     W=2, thin=50, one worm per record (capped at 64·N²), then
     ``pooled_ensemble``, ``autocorrelation_time`` and ``Bootstrap``; the
     kernels' launch counts in that run and the kernels' and plain versions'
-    times at that shape;
+    times at that shape; the sweep kernel's device time by kind of launch
+    and one record's (Hammer call and host copy) device time by kind against
+    its wall time (torch.profiler), and the worm kernel's nanoseconds per move
+    of the longest worm and moves per second;
 W5. each Worldline kernel at the main path's shape against its plain version
     fed the kernel's own draws, from W4's final state: m and v differ on at
     most 1e-4 of the links and plaquettes (wrapping-cycle flips counted apart),
@@ -64,6 +67,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -201,6 +205,62 @@ def time_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps, out
+
+
+def profiled(torch, fn, reps):
+    """Device time of each kind of launch that ``fn`` makes over ``reps``
+    calls, from torch.profiler: ({kind: (launches per call, ms per call)},
+    host-clock ms per call).  The dict is empty when the profiler records no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kinds = {}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0:
+            continue
+        found = re.search(r'(\w+(?:<[^()]*>)?)\(', e.key)
+        kind = found.group(1) if found else e.key
+        count, total = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (count + e.count / reps, total + us / 1e3 / reps)
+    return kinds, wall_ms
+
+
+def launch_breakdown(torch, fn, reps):
+    """The kinds of :func:`profiled` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    return profiled(torch, fn, reps)[0]
+
+
+def say_breakdown(card, what, kinds, call_ms, clock='CUDA events'):
+    """Print a launch breakdown with each kind's share of the call's device
+    time, beside the call's time on ``clock`` (the rest is time the device
+    waits: gaps between launches, or the host)."""
+    if not kinds:
+        say(f'  [{card}] {what}: the profiler recorded no device time (not measured)')
+        return
+    total = sum(ms for _, ms in kinds.values())
+    say(f'  [{card}] {what}: {total!r} ms of device time per call, against {call_ms!r} ms per '
+        f'call on {clock} (device idle {1 - total / call_ms!r} of it)')
+    for kind, (count, ms) in sorted(kinds.items(), key=lambda kv: -kv[1][1]):
+        say(f'    {kind}: {count!r} launches, {ms!r} ms per call, {ms / total!r} of the call')
+
+
+def timed_call(torch, fn):
+    """Milliseconds of one call on the card (CUDA events) and its result."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
 
 
 def bound(nbytes, ops):
@@ -827,6 +887,27 @@ def phase_worldline_main_path(torch, card):
         'worldline_hammer': bound(28 * sites + 20 * B,
                                   OPS_WORLDLINE_SITE * sites * thin + OPS_WORM_MOVE * hammer_moves),
     }
+    # B4 by kind of launch, and B5 per move of the longest worm, call by call:
+    # a worm is a serial walk, so a call lasts as long as its longest worm.
+    kinds = launch_breakdown(torch, lambda: worldline_sweeps(
+        m, v, sweeps=thin, generator=host, **common), 3)
+    say_breakdown(card, f'worldline sweep kernel by launch kind (torch.profiler, 3 {thin}-sweep '
+                  f'calls)', kinds, ms['worldline_sweep'])
+    # One record as sample_fused_fleet makes it (the Hammer, then the copy of
+    # its inline observables to the host), from the final state.
+    kinds, record_ms = profiled(torch, lambda: {k: x.cpu().numpy() for k, x in worldline_hammer_sweeps(
+        m, v, sweeps=thin, worms=1, max_worm_moves=cap, generator=host, **common)[3].items()}, 3)
+    say_breakdown(card, 'one worldline record (Hammer call and host copy of its inline '
+                  'observables, torch.profiler, 3 records)', kinds, record_ms, 'the host clock')
+    worm_calls = [timed_call(torch, lambda: worldline_worms(
+        m, v, worms=1, max_worm_moves=cap, generator=host, **common)) for _ in range(5)]
+    worm_ms = sum(t for t, _ in worm_calls)
+    longest = sum(float(out[2].max()) for _, out in worm_calls)
+    all_moves = sum(worm_moves(out[2], out[3], 1) for _, out in worm_calls)
+    say(f'  [{card}] worldline worm kernel: {worm_ms * 1e6 / longest!r} ns per move of the longest '
+        f'worm ({worm_ms!r} ms over 5 calls whose longest worms make {longest!r} moves); '
+        f'{all_moves / worm_ms * 1e3!r} moves/s over all {B} chains')
+
     su = sites * thin
     say(f'  [{card}] worldline sweep kernel {ms["worldline_sweep"]!r} ms per {thin}-sweep call = '
         f'{su / ms["worldline_sweep"] * 1e3!r} site-updates/s; plain {plain_sweep_ms!r} ms; '

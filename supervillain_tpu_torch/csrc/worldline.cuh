@@ -20,20 +20,26 @@ __device__ __forceinline__ int draw_nonzero(uint32_t w, int interval) {
     return r < 0 ? r : r + 1;
 }
 
-// The residual u = m − δv/_W of link (ax, t, x) of one chain, from m and v
-// ((δv)_0[t,x] = v[t,x] − v[t,x−1], (δv)_1[t,x] = −(v[t,x] − v[t−1,x])), with
-// inv_w = 1/_W.
+// δv/_W of a link on axis ax from the two v of its δv, v_here at the link's
+// site and v_back one step back along ax ((δv)_0[t,x] = v[t,x] − v[t,x−1],
+// (δv)_1[t,x] = −(v[t,x] − v[t−1,x])), with inv_w = 1/_W.
+template <typename V>
+__device__ __forceinline__ float dual_part(V v_here, V v_back, int ax, float inv_w) {
+    const V dv = ax == 0 ? v_here - v_back : -(v_here - v_back);
+    return __fmul_rn((float)dv, inv_w);
+}
+
+// The residual u = m − δv/_W of a link from its m and its dual_part.
+__device__ __forceinline__ float residual(int m, float dvw) { return __fsub_rn((float)m, dvw); }
+
+// The residual of link (ax, t, x) of one chain in the public (2, N, N) and
+// (1, N, N) layouts of m and v.
 template <typename V>
 __device__ __forceinline__ float link_residual(const int* m, const V* v, int ax, int t, int x,
                                                int N, float inv_w) {
     const int s = t * N + x;
-    V dv;
-    if (ax == 0) {
-        dv = v[s] - v[t * N + (x == 0 ? N - 1 : x - 1)];
-    } else {
-        dv = -(v[s] - v[(t == 0 ? N - 1 : t - 1) * N + x]);
-    }
-    return __fsub_rn((float)m[ax * N * N + s], __fmul_rn((float)dv, inv_w));
+    const int back = ax == 0 ? t * N + (x == 0 ? N - 1 : x - 1) : (t == 0 ? N - 1 : t - 1) * N + x;
+    return residual(m[ax * N * N + s], dual_part(v[s], v[back], ax, inv_w));
 }
 
 // ΔS = (1/2κ)·du·(2u + du) of one link whose residual u changes by du.

@@ -26,8 +26,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P, _I, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_ulonglong, ctypes.c_float)
-_WORLDLINE_SWEEPS = [_P] * 7 + [_I, _I, _I, _F, _F, _F, _I, _I, _ULL, _P]
-_WORLDLINE_WORMS = [_P] * 6 + [_LL, _I, _I, _F, _F, _I, _LL, _ULL, _P]
+_WORLDLINE_SWEEPS = [_P] * 11 + [_I, _I, _I, _F, _F, _F, _I, _I, _ULL, _P]
+_WORLDLINE_WORMS = [_P] * 7 + [_LL, _I, _I, _F, _F, _I, _LL, _ULL, _P]
 _SIGNATURES = {
     'sv_sweeps': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _I, _F, _ULL, _P],
     'sv_worms': [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _I, _LL, _I, _ULL, _P],

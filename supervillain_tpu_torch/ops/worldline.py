@@ -204,6 +204,24 @@ def plain_worldline_sweeps(m, v, *, kappa, W, sweeps, draws):
     return m, v, accepted, {'ActionDensity': sS / sweeps}
 
 
+#: The most chains one kernel call takes: the chain is the grid's y index.
+MAX_CHAINS = 65535
+
+
+def sweep_scratch(m, v):
+    """Scratch of one kernel call on (m, v), in the kernel's private layout
+    (each field split by site color into two planes of N rows of N/2 sites):
+    v, T (the summed coexact changes of each plaquette, int32) and the
+    residual u (float32); and per cycle (B, 2N), the summed wrapping shifts
+    (int32) and Σu² (double)."""
+    B, _, N, _ = m.shape
+    dev = m.device
+    return {'v': torch.empty_like(v), 't': torch.empty(v.shape, dtype=torch.int32, device=dev),
+            'u': torch.empty(m.shape, dtype=torch.float32, device=dev),
+            'shifts': torch.empty((B, 2 * N), dtype=torch.int32, device=dev),
+            'squares': torch.empty((B, 2 * N), dtype=torch.float64, device=dev)}
+
+
 def worldline_sweeps(m, v, *, kappa, W, interval_v=1, interval_t=1, interval_w=1, sweeps,
                      generator):
     """Run ``sweeps`` fused worldline local-update sweeps on a chain batch.
@@ -233,17 +251,20 @@ def worldline_sweeps(m, v, *, kappa, W, interval_v=1, interval_t=1, interval_w=1
         raise ValueError(f'worldline_sweeps runs on the CPU or a CUDA device, not {m.device}')
 
     B, N = kernels.require_worldline_fields(m, v, W)
+    if B > MAX_CHAINS:
+        raise ValueError(f'worldline_sweeps takes at most {MAX_CHAINS} chains per call, got {B}')
     sweeps = int(sweeps)
     if sweeps < 1:
         raise ValueError(f'sweeps must be >= 1, got {sweeps}')
     lib = kernels.library()
     m_out = torch.empty_like(m)
     v_out = torch.empty_like(v)
-    u = torch.empty(m.shape, dtype=torch.float32, device=m.device)
+    scratch = sweep_scratch(m, v)
     accepted = torch.empty(B, dtype=torch.int32, device=m.device)
     sums = torch.empty(B, dtype=torch.float64, device=m.device)
     entry = lib.sv_worldline_sweeps_winf if winf else lib.sv_worldline_sweeps
-    code = entry(m.data_ptr(), v.data_ptr(), m_out.data_ptr(), v_out.data_ptr(), u.data_ptr(),
+    code = entry(m.data_ptr(), v.data_ptr(), m_out.data_ptr(), v_out.data_ptr(),
+                 *(scratch[k].data_ptr() for k in ('v', 't', 'u', 'shifts', 'squares')),
                  accepted.data_ptr(), sums.data_ptr(), B, N, sweeps, float(0.5 / kappa),
                  float(inverse_w(W)), float(interval_v), int(interval_t), int(interval_w),
                  kernels.seed_from(generator), kernels.stream_handle(m.device))

@@ -167,15 +167,19 @@ def worldline_worms(m, v, *, kappa, W, worms=1, max_worm_moves=None, generator):
 
     B, N = kernels.require_worldline_fields(m, v, W)
     cap = -1 if max_worm_moves is None else int(max_worm_moves)
+    if cap >= 2 ** 31:
+        raise ValueError(f'max_worm_moves must be below 2**31, got {cap}')
     lib = kernels.library()
     m_out = torch.empty_like(m)
+    packed = torch.empty((B, N, N, 2, 2), dtype=torch.int32, device=m.device)
     hist = torch.empty((B, N, N), dtype=torch.float32, device=m.device)
     stat = torch.empty((B, 2), dtype=torch.float32, device=m.device)
     log_words = (cap + 15) // 16 if cap >= 0 else 0
     log = torch.empty((B, log_words), dtype=torch.int32, device=m.device) if cap >= 0 else None
     entry = lib.sv_worldline_worms_winf if W == float('inf') else lib.sv_worldline_worms
-    code = entry(m.data_ptr(), v.data_ptr(), m_out.data_ptr(), hist.data_ptr(), stat.data_ptr(),
-                 None if log is None else log.data_ptr(), log_words, B, N, float(0.5 / kappa),
+    code = entry(m.data_ptr(), v.data_ptr(), m_out.data_ptr(), packed.data_ptr(), hist.data_ptr(),
+                 stat.data_ptr(), None if log is None else log.data_ptr(), log_words, B, N,
+                 float(0.5 / kappa),
                  float(inverse_w(W)), int(worms), cap, kernels.seed_from(generator),
                  kernels.stream_handle(m.device))
     kernels.check(code, 'worldline_worms')

@@ -139,6 +139,14 @@ def _worldline_sweeps(m, v, W, sweeps, seed):
                             generator=torch.Generator().manual_seed(seed))
 
 
+def _worldline_sweep_draws(seed, B, N, W, device):
+    winf = W == float('inf')
+    return KernelWorldlineSweepDraws(kernels.seed_from(torch.Generator().manual_seed(seed)), B=B,
+                                     N=N, interval_v=1.0 if winf else 1, interval_t=1,
+                                     interval_w=1, winf=winf, fdt=torch.float32, idt=torch.int32,
+                                     device=device)
+
+
 def test_worldline_kernels_reject_what_they_do_not_take(cuda):
     m, v = _cold_worldline(2, 6, 2, cuda)
     with pytest.raises(ValueError, match='even N'):
@@ -151,6 +159,10 @@ def test_worldline_kernels_reject_what_they_do_not_take(cuda):
         _worldline_sweeps(m.transpose(2, 3), v, 2, 1, 0)
     with pytest.raises(ValueError, match='v must be'):
         worldline_worms(m, v[:1], kappa=0.5, W=2, generator=torch.Generator())
+    with pytest.raises(ValueError, match='max_worm_moves'):
+        worldline_worms(m, v, kappa=0.5, W=2, max_worm_moves=2 ** 31, generator=torch.Generator())
+    with pytest.raises(ValueError, match='at most 65535 chains'):
+        _worldline_sweeps(*_cold_worldline(65536, 2, 2, cuda), 2, 1, 0)
 
 
 @pytest.mark.parametrize('W', [1, 2, float('inf')])
@@ -169,19 +181,17 @@ def test_worldline_sweep_kernel_keeps_constraint_and_inline_action(cuda, W):
                                (u * u).sum(dim=(1, 2, 3)) / 64, rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize('W', [1, 2, float('inf')])
+@pytest.mark.parametrize('W', [1, 2, 3, float('inf')])
 def test_worldline_kernels_repeat_their_plain_versions_on_the_same_draws(cuda, W):
     """Fed the kernels' own Philox draws, the plain versions repeat the kernel
-    calls up to decisions flipped by float rounding of ΔS."""
-    B, N, kappa, winf = 64, 8, 0.5, W == float('inf')
+    calls up to decisions flipped by float rounding of ΔS.  W=3 makes 1/W
+    inexact, where any change to the residual's rounding would show."""
+    B, N, kappa = 64, 8, 0.5
     m, v = _cold_worldline(B, N, W, cuda)
     m, v, _, _ = _worldline_sweeps(m, v, W, 20, 4)
     got = _worldline_sweeps(m, v, W, 6, 5)
-    draws = KernelWorldlineSweepDraws(kernels.seed_from(torch.Generator().manual_seed(5)), B=B,
-                                      N=N, interval_v=1.0 if winf else 1, interval_t=1,
-                                      interval_w=1, winf=winf, fdt=torch.float32,
-                                      idt=torch.int32, device=cuda)
-    want = plain_worldline_sweeps(m, v, kappa=kappa, W=W, sweeps=6, draws=draws)
+    want = plain_worldline_sweeps(m, v, kappa=kappa, W=W, sweeps=6,
+                                  draws=_worldline_sweep_draws(5, B, N, W, cuda))
     assert float((got[0] != want[0]).float().mean()) <= 1e-3
     assert float((got[1] != want[1]).float().mean()) <= 1e-3
     torch.testing.assert_close(got[3]['ActionDensity'], want[3]['ActionDensity'],
@@ -222,3 +232,71 @@ def test_worldline_hammer_is_deterministic_for_a_seed(cuda):
         assert torch.equal(x, y)
     for k in a[3]:
         assert torch.equal(a[3][k], b[3][k])
+
+
+@pytest.mark.parametrize('W', [2, float('inf')])
+def test_worldline_sweep_kernel_on_a_ragged_grid(cuda, W):
+    """B=37 chains of N=6: neither fills the kernel's blocks of 32 lanes by 8
+    rows, and N/2 = 3 sites per color row is odd."""
+    B, N = 37, 6
+    m, v = _cold_worldline(B, N, W, cuda)
+    m, v, _, _ = _worldline_sweeps(m, v, W, 30, 7)
+    got = _worldline_sweeps(m, v, W, 10, 8)
+    want = plain_worldline_sweeps(m, v, kappa=0.5, W=W, sweeps=10,
+                                  draws=_worldline_sweep_draws(8, B, N, W, cuda))
+    assert float((got[0] != want[0]).float().mean()) <= 1e-3
+    assert float((got[1] != want[1]).float().mean()) <= 1e-3
+    assert float(got[2].sum()) > 0
+    torch.testing.assert_close(got[3]['ActionDensity'], want[3]['ActionDensity'],
+                               rtol=1e-4, atol=0)
+    assert bool((calculus.delta(lattice(N), 1, got[0]) == 0).all())
+
+
+def test_worldline_worms_truncate_and_roll_back_after_closed_worms(cuda):
+    """Three worms per chain under a cap of 37 moves: closed worms and
+    truncated ones (whose logs end mid-word) follow each other in one call.
+    The kernel repeats its plain twin on its own draws, and a chain whose every
+    worm was truncated gets its m back bit for bit."""
+    B, N, W, worms, cap = 128, 8, 2, 3, 37
+    m, v = _cold_worldline(B, N, W, cuda)
+    m, v, _, _ = _worldline_sweeps(m, v, W, 20, 3)
+    seed = 9
+    got = worldline_worms(m, v, kappa=0.5, W=W, worms=worms, max_worm_moves=cap,
+                          generator=torch.Generator().manual_seed(seed))
+    want = plain_worldline_worms(
+        m, v, kappa=0.5, W=W, worms=worms, max_worm_moves=cap,
+        draws=KernelWorldlineWormDraws(kernels.seed_from(torch.Generator().manual_seed(seed)),
+                                       B=B, N=N, device=cuda))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    m_out, hist, length, truncated = got
+    assert torch.equal(length, hist.sum(dim=(1, 2)))
+    assert bool((truncated > 0).any()) and bool((truncated < worms).any())
+    every = truncated == worms
+    assert bool(every.any())
+    assert torch.equal(m_out[every], m[every])
+    assert bool((calculus.delta(lattice(N), 1, m_out) == 0).all())
+
+
+@pytest.mark.parametrize('N, W, cap', [(6, 2, None), (6, 2, 29), (10, float('inf'), None),
+                                       (10, 3, 53)])
+def test_worldline_worms_at_n_not_a_power_of_two(cuda, N, W, cap):
+    """At N = 6 and 10, with and without a cap, three worms per chain repeat
+    their plain twin bit for bit on the kernel's own draws: the heads and
+    links of moves three ahead wrap at both edges, and truncated worms replay
+    their logs across the edges."""
+    B, worms, seed = 64, 3, 12
+    m, v = _cold_worldline(B, N, W, cuda)
+    m, v, _, _ = _worldline_sweeps(m, v, W, 20, 5)
+    got = worldline_worms(m, v, kappa=0.5, W=W, worms=worms, max_worm_moves=cap,
+                          generator=torch.Generator().manual_seed(seed))
+    want = plain_worldline_worms(
+        m, v, kappa=0.5, W=W, worms=worms, max_worm_moves=cap,
+        draws=KernelWorldlineWormDraws(kernels.seed_from(torch.Generator().manual_seed(seed)),
+                                       B=B, N=N, device=cuda))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    m_out, hist, length, truncated = got
+    assert torch.equal(length, hist.sum(dim=(1, 2)))
+    assert bool((truncated > 0).any()) == (cap is not None)
+    assert bool((calculus.delta(lattice(N), 1, m_out) == 0).all())

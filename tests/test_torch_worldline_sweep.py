@@ -14,8 +14,9 @@ import supervillain_tpu as jsv
 from supervillain_tpu.generators import base as jbase, worldline as jworldline
 import supervillain_tpu_torch as tsv
 from supervillain_tpu_torch.interop import worldline_action, worldline_state_from_numpy
-from supervillain_tpu_torch.ops.worldline import (KernelWorldlineSweepDraws, PASSES,
-                                                  plain_worldline_sweeps, worldline_sweeps)
+from supervillain_tpu_torch.ops.worldline import (KernelWorldlineSweepDraws, MAX_CHAINS, PASSES,
+                                                  plain_worldline_sweeps, sweep_scratch,
+                                                  worldline_sweeps)
 
 from test_torch_worldline_model import _closed_m
 
@@ -151,3 +152,18 @@ def test_wrapper_rejects_other_devices():
     v = torch.zeros((1, 1, 4, 4), dtype=torch.int32, device='meta')
     with pytest.raises(ValueError, match='CPU or a CUDA device'):
         worldline_sweeps(m, v, kappa=0.5, W=1, sweeps=1, generator=torch.Generator())
+
+
+@pytest.mark.parametrize('W', [2, float('inf')])
+def test_sweep_scratch_matches_the_fields(W):
+    """The kernel's scratch: v, T and u in its private layout (the public
+    fields' sizes) and two numbers per cycle, 2N per chain."""
+    vdt = torch.float32 if W == float('inf') else torch.int32
+    m = torch.zeros((3, 2, 6, 6), dtype=torch.int32)
+    v = torch.zeros((3, 1, 6, 6), dtype=vdt)
+    scratch = sweep_scratch(m, v)
+    assert {k: (tuple(t.shape), t.dtype) for k, t in scratch.items()} == {
+        'v': ((3, 1, 6, 6), vdt), 't': ((3, 1, 6, 6), torch.int32),
+        'u': ((3, 2, 6, 6), torch.float32), 'shifts': ((3, 12), torch.int32),
+        'squares': ((3, 12), torch.float64)}
+    assert MAX_CHAINS == 2 ** 16 - 1
