@@ -21,12 +21,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    thin=50, one worm per record, then ``pooled_ensemble``,
    ``autocorrelation_time`` and ``Bootstrap.estimate('ActionDensity')``; the
    kernels' launch counts in that run, and the kernels' and plain versions'
-   times at that shape;
+   times at that shape (the sweep and the Hammer as min/median/max over 7
+   calls); the sweep kernel's plan (regime, cluster, rows per band, shared
+   bytes, clusters the card runs at once), its device time by kind of launch
+   in both regimes, and one Villain record's (Hammer call and host copy)
+   device time by kind against its wall time (torch.profiler);
 7. each kernel at the main path's shape against its plain version fed the
    kernel's own Philox draws, from the main path's final state: fields that
    differ on at most 1e-4 of the sites (a flipped Metropolis decision where
    float rounding of ΔS differs), worms that differ on at most 1% of the
-   chains, and inline ActionDensity and WindingSquared within 1e-3;
+   chains, and inline ActionDensity and WindingSquared within 1e-3; and the
+   sweep kernel's resident and streaming regimes on one seed: the same φ, n
+   and accepted counts bit for bit;
 
 and for the Worldline kernels (B4 sweeps, B5 worms, B6 Hammer):
 
@@ -263,6 +269,22 @@ def timed_call(torch, fn):
     return start.elapsed_time(stop), out
 
 
+def call_spread(torch, fn, reps):
+    """Milliseconds of each of ``reps`` calls on the card (CUDA events, one
+    call at a time, after one warm-up), and the last call's result."""
+    fn()
+    times = []
+    for _ in range(reps):
+        ms, out = timed_call(torch, fn)
+        times.append(ms)
+    return times, out
+
+
+def spread(times):
+    """'min / median / max' of per-call milliseconds."""
+    return f'{min(times)!r} / {float(np.median(times))!r} / {max(times)!r}'
+
+
 def bound(nbytes, ops):
     """(bound_ms, bound_by) of a call that moves ``nbytes`` and does ``ops``."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
@@ -467,7 +489,9 @@ def phase_invariants(torch):
 def phase_main_path(torch, card):
     import supervillain_tpu_torch as sv
     from supervillain_tpu_torch.ops.hammer import hammer_sweeps
-    from supervillain_tpu_torch.ops.sweep import SweepDraws, neighborhood_sweeps, plain_sweeps
+    from supervillain_tpu_torch.ops.sweep import (STREAMING_PLAN, SweepDraws, kernel_sweeps,
+                                                  neighborhood_sweeps, plain_sweeps,
+                                                  resident_clusters, sweep_plan)
     from supervillain_tpu_torch.ops.worm import WormDraws, classic_worms, plain_worms
     from supervillain_tpu_torch.parallel import TRUNCATION_BUDGET
 
@@ -517,16 +541,53 @@ def phase_main_path(torch, card):
     wdraws = WormDraws(gdev, B=B, N=N, fdt=torch.float32, device='cuda')
     common = dict(kappa=0.5, W=1)
     cap = 64 * N * N
-    timed = {
-        'sweep': time_ms(torch, lambda: neighborhood_sweeps(
-            phi, n, interval_phi=math.pi, interval_n=1, sweeps=thin, generator=host, **common), 5),
-        'worm': time_ms(torch, lambda: classic_worms(
-            phi, n, worms=1, max_worm_moves=cap, generator=host, **common), 5),
-        'hammer': time_ms(torch, lambda: hammer_sweeps(
-            phi, n, interval_phi=math.pi, interval_n=1, sweeps=thin, worms=1,
-            max_worm_moves=cap, generator=host, **common), 5),
-    }
+
+    def sweep():
+        return neighborhood_sweeps(phi, n, interval_phi=math.pi, interval_n=1, sweeps=thin,
+                                   generator=host, **common)
+
+    def hammer():
+        return hammer_sweeps(phi, n, interval_phi=math.pi, interval_n=1, sweeps=thin, worms=1,
+                             max_worm_moves=cap, generator=host, **common)
+
+    plan = sweep_plan(N)
+    say(f'  [{card}] sweep plan at N={N}: {plan}; bands (first row, rows) {plan.bands(N)}; '
+        f'{resident_clusters(plan) if plan.regime == "resident" else 0} clusters run at once')
+    spreads = {'sweep': call_spread(torch, sweep, 7), 'hammer': call_spread(torch, hammer, 7)}
+    timed = {k: (float(np.median(t)), out) for k, (t, out) in spreads.items()}
+    timed['worm'] = time_ms(torch, lambda: classic_worms(
+        phi, n, worms=1, max_worm_moves=cap, generator=host, **common), 5)
     ms = {k: t for k, (t, _) in timed.items()}
+    for k, (t, _) in spreads.items():
+        say(f'  [{card}] {k} ms per call, min / median / max over {len(t)} calls: {spread(t)}')
+    # The sweep kernel by kind of launch in its plan's regime, and in the
+    # streaming regime (one launch per color pass) at the same shape for comparison.
+    streaming = STREAMING_PLAN
+    streaming_times, _ = call_spread(torch, lambda: kernel_sweeps(
+        phi, n, streaming, interval_phi=math.pi, interval_n=1, sweeps=thin, generator=host,
+        **common), 5)
+    say(f'  [{card}] sweep kernel in the streaming regime at N={N}, ms per call, min / median / '
+        f'max over 5 calls: {spread(streaming_times)}')
+    say_breakdown(card, f'sweep kernel by launch kind ({plan.regime}, torch.profiler, 3 '
+                  f'{thin}-sweep calls)', launch_breakdown(torch, sweep, 3), ms['sweep'])
+    if plan.regime == 'resident':
+        cycles = torch.zeros((B * plan.cluster, 2), dtype=torch.int64, device='cuda')
+        kernel_sweeps(phi, n, plan, interval_phi=math.pi, interval_n=1, sweeps=thin,
+                      generator=host, cycles=cycles, **common)
+        waited, total = (float(c) for c in cycles.double().sum(dim=0))
+        say(f'  [{card}] resident sweep: thread 0 of each block waits {waited / total!r} of its '
+            f'clock cycles at the {3 * thin + 2} cluster barriers of a call (mean over '
+            f'{cycles.shape[0]} blocks)')
+    say_breakdown(card, f'sweep kernel by launch kind (streaming, torch.profiler, 3 {thin}-sweep '
+                  f'calls)', launch_breakdown(torch, lambda: kernel_sweeps(
+                      phi, n, streaming, interval_phi=math.pi, interval_n=1, sweeps=thin,
+                      generator=host, **common), 3), float(np.median(streaming_times)))
+    # One record as sample_fused_fleet makes it (the Hammer, then the copy of
+    # its inline observables to the host), from the final state.
+    kinds, record_ms = profiled(torch, lambda: {k: x.cpu().numpy() for k, x in hammer()[3].items()},
+                                3)
+    say_breakdown(card, 'one Villain record (Hammer call and host copy of its inline '
+                  'observables, torch.profiler, 3 records)', kinds, record_ms, 'the host clock')
     plain_sweep_ms, _ = time_ms(torch, lambda: plain_sweeps(phi, n, sweeps=thin, draws=sdraws,
                                                              **common), 1)
     plain_worm_ms, _ = time_ms(torch, lambda: plain_worms(phi, n, worms=1, max_worm_moves=cap,
@@ -589,7 +650,8 @@ def compare_worms(name, got, want):
 def phase_same_draws(torch, final):
     from supervillain_tpu_torch.ops import kernels
     from supervillain_tpu_torch.ops.hammer import hammer_sweeps
-    from supervillain_tpu_torch.ops.sweep import KernelSweepDraws, neighborhood_sweeps, plain_sweeps
+    from supervillain_tpu_torch.ops.sweep import (STREAMING_PLAN, KernelSweepDraws, kernel_sweeps,
+                                                  neighborhood_sweeps, plain_sweeps, sweep_plan)
     from supervillain_tpu_torch.ops.worm import KernelWormDraws, classic_worms, plain_worms
 
     phi, n = final
@@ -630,6 +692,17 @@ def phase_same_draws(torch, final):
     err_worm = compare_worms('hammer', (got[1], got[3]['Vortex_Vortex'], got[3]['Worm_Length']),
                              worm)
     err['hammer'] = max(err_sweep, err_worm)
+
+    # Both regimes of the sweep kernel on one seed at the main path's shape.
+    plans = {'resident': sweep_plan(N), 'streaming': STREAMING_PLAN}
+    outs = {k: kernel_sweeps(phi, n, plan, generator=torch.Generator().manual_seed(14),
+                             **sweep_args) for k, plan in plans.items()}
+    same = [torch.equal(a, b) for a, b in zip(outs['resident'][:3], outs['streaming'][:3])]
+    inline = max(float((outs['resident'][3][k] - outs['streaming'][3][k]).abs().max())
+                 for k in ('ActionDensity', 'WindingSquared'))
+    say(f'  sweep regimes {plans["resident"].regime} and streaming on one seed: φ, n, accepted '
+        f'equal {same}; max |Δ inline| {inline!r}')
+    require(all(same), 'the resident and streaming sweep regimes differ on one seed')
     torch.cuda.synchronize()
     return err
 

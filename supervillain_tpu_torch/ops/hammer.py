@@ -1,12 +1,11 @@
 """The fused Villain Hammer: neighborhood sweeps, then classic worms.
 
 Counterpart of :func:`supervillain_tpu.ops.pallas_hammer.hammer_sweeps`.  On
-the TPU one launch keeps a chain in VMEM through both sections.  On a GPU the
-chain state lives in device memory between launches anyway (one L=256 chain
-does not fit a block's shared memory), so the port composes the two kernels
-on one stream: the sweep kernel's ``2·sweeps`` color passes, then the worm
-kernel on the same tensors.  A single fused kernel only pays where a block or
-cluster can hold the state; that is a later performance question.
+the TPU one launch keeps a chain in VMEM through both sections.  The port
+composes the two kernels on one stream: the sweep kernel (which holds a chain
+of N <= 304 in a thread-block cluster's shared memory for its whole call),
+then the worm kernel on the fields it wrote to device memory.  Keeping the
+chain on chip through the worm as well is a later performance question.
 """
 
 from __future__ import annotations

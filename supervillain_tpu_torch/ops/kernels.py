@@ -30,6 +30,8 @@ _WORLDLINE_SWEEPS = [_P] * 11 + [_I, _I, _I, _F, _F, _F, _I, _I, _ULL, _P]
 _WORLDLINE_WORMS = [_P] * 7 + [_LL, _I, _I, _F, _F, _I, _LL, _ULL, _P]
 _SIGNATURES = {
     'sv_sweeps': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _I, _F, _ULL, _P],
+    'sv_sweeps_resident': [_P] * 7 + [_I, _I, _I, _F, _I, _F, _I, _F, _ULL, _I, _I, _I, _I, _P],
+    'sv_sweeps_resident_clusters': [_I, _I, _I, _P],
     'sv_worms': [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _I, _LL, _I, _ULL, _P],
     'sv_worldline_sweeps': _WORLDLINE_SWEEPS,
     'sv_worldline_sweeps_winf': _WORLDLINE_SWEEPS,

@@ -4,7 +4,10 @@ Counterpart of :func:`supervillain_tpu.ops.pallas_sweep.neighborhood_sweeps`.
 :func:`neighborhood_sweeps` dispatches by device: a CPU batch runs
 :func:`plain_sweeps` with draws from a ``torch.Generator``, a CUDA batch runs
 the kernel of ``csrc/sweep.cu`` (seeded from the same generator), and any
-other device raises.
+other device raises.  On the card, :func:`sweep_plan` picks the kernel's
+regime from N alone: a chain resident in a thread-block cluster's shared
+memory for the whole call (N <= 304), or kernels streaming it from
+device memory (larger N).  Both give the same fields bit for bit.
 
 The plain version is the same transition kernel as
 :class:`supervillain_tpu.generators.villain.NeighborhoodUpdate` (and, at
@@ -17,7 +20,9 @@ kernel call.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,6 +38,75 @@ TWO_PI = 2 * np.pi
 @lru_cache(maxsize=None)
 def lattice(N: int) -> Lattice2D:
     return Lattice2D(N)
+
+
+#: Bytes of one site of a chain held in shared memory: φ f32, n 2×i32, r 2×f32.
+RESIDENT_BYTES_PER_SITE = 20
+#: Dynamic shared memory one block of the resident kernel may take: the
+#: H100's 232,448 bytes a block, less 1 KB for the kernel's static arrays.
+RESIDENT_SHARED_BYTES = 232_448 - 1024
+#: Cluster sizes a plan chooses from: powers of two up to the portable limit
+#: of 8, which pack the card's GPCs (16 or 18 SMs each) without a remainder
+#: larger than two SMs.
+CLUSTER_SIZES = (1, 2, 4, 8)
+RESIDENT_THREADS = 1024         # csrc/sweep.cu kResidentThreads
+STREAMING_THREADS = 256         # csrc/sweep.cu sv_sweeps
+
+
+class SweepPlan(NamedTuple):
+    """How the sweep kernel runs chains of one N (see :func:`sweep_plan`)."""
+    regime: str         # 'resident' or 'streaming'
+    cluster: int        # blocks per chain, each holding a band of rows (0: streaming)
+    rows: int           # rows of the tallest band (0: streaming)
+    threads: int        # threads per block
+    shared_bytes: int   # dynamic shared memory per block
+
+    def bands(self, N):
+        """(first row, rows) of each block of a chain's cluster, by rank: N // k
+        rows each, one more for the first N % k ranks (``csrc/sweep.cu``
+        ``band_of``).  Empty when streaming."""
+        k = self.cluster
+        if k == 0:
+            return []
+        base, extra = divmod(N, k)
+        return [(rank * base + min(rank, extra), base + (rank < extra)) for rank in range(k)]
+
+
+#: The plan of every N beyond the resident regime's reach.
+STREAMING_PLAN = SweepPlan('streaming', 0, 0, STREAMING_THREADS, 0)
+
+
+@lru_cache(maxsize=None)
+def sweep_plan(N: int) -> SweepPlan:
+    """The sweep kernel's plan for chains of an even ``N``, a function of N alone.
+
+    Resident when some cluster size k of :data:`CLUSTER_SIZES` gives bands of
+    ``ceil(N / k)`` rows whose 20 bytes a site fit :data:`RESIDENT_SHARED_BYTES`
+    (up to N = 304); the plan takes the smallest such k, and one thread per
+    entry of a band's color plane up to :data:`RESIDENT_THREADS`.  Otherwise
+    the chain streams from device memory, one launch per color pass.  The card
+    either runs the plan or raises: the regime is never a retry."""
+    if N < 2 or N % 2:
+        raise ValueError(f'the sweep kernel needs an even N >= 2, got N={N}')
+    for k in CLUSTER_SIZES:
+        rows = -(-N // k)
+        shared = RESIDENT_BYTES_PER_SITE * rows * N
+        if shared <= RESIDENT_SHARED_BYTES:
+            entries = rows * (N // 2)
+            threads = min(RESIDENT_THREADS, 32 * -(-entries // 32))
+            return SweepPlan('resident', k, rows, threads, shared)
+    return STREAMING_PLAN
+
+
+def resident_clusters(plan: SweepPlan) -> int:
+    """How many clusters of a resident ``plan`` the card runs at once (0: none,
+    and a launch would raise).  Needs the CUDA kernels."""
+    active = ctypes.c_int(0)
+    code = kernels.library().sv_sweeps_resident_clusters(plan.cluster, plan.threads,
+                                                         plan.shared_bytes,
+                                                         ctypes.addressof(active))
+    kernels.check(code, 'resident_clusters')
+    return active.value
 
 
 class SweepDraws:
@@ -92,7 +166,7 @@ class KernelSweepDraws:
         self.passes = 0
 
     def _int(self, a, b):
-        """``draw_int`` of the kernel: uniform in {-i..i}, or zero-inflated."""
+        """``draw`` of the kernel (an integer here): uniform in {-i..i}, or zero-inflated."""
         i, p = self.interval_n, self.p_n
         if p is None:
             return torch.floor(philox.u24(a) * float(2 * i + 1)).to(self.idt) - i
@@ -217,22 +291,44 @@ def neighborhood_sweeps(phi, n, *, kappa, W, interval_phi, interval_n, sweeps,
         raise ValueError(f'neighborhood_sweeps runs on the CPU or a CUDA device, not {phi.device}')
 
     B, N = kernels.require_fields(phi, n)
+    return kernel_sweeps(phi, n, sweep_plan(N), kappa=kappa, W=W, interval_phi=interval_phi,
+                         interval_n=interval_n, sweeps=sweeps, p_n=p_n, generator=generator)
+
+
+def kernel_sweeps(phi, n, plan, *, kappa, W, interval_phi, interval_n, sweeps, p_n=None,
+                  generator, cycles=None):
+    """:func:`neighborhood_sweeps` of a CUDA batch under a given ``plan``: its
+    :func:`sweep_plan`, or (to compare the two regimes on one card) the
+    streaming plan at an N that would be resident.  ``cycles``, a (B·k, 2)
+    int64 tensor on the card, receives for each block of a resident call the
+    clock cycles its thread 0 waited at cluster barriers and its cycles in
+    all."""
+    B, N = kernels.require_fields(phi, n)
     sweeps = int(sweeps)
     if sweeps < 1:
         raise ValueError(f'sweeps must be >= 1, got {sweeps}')
     lib = kernels.library()
     phi_out = torch.empty_like(phi)
     n_out = torch.empty_like(n)
-    r = torch.empty(n.shape, dtype=torch.float32, device=phi.device)
     accepted = torch.empty(B, dtype=torch.int32, device=phi.device)
     sums = torch.empty((B, 2), dtype=torch.float64, device=phi.device)
-    code = lib.sv_sweeps(
-        phi.data_ptr(), n.data_ptr(), phi_out.data_ptr(), n_out.data_ptr(), r.data_ptr(),
-        accepted.data_ptr(), sums.data_ptr(), B, N, sweeps, float(kappa),
-        0 if W == float('inf') else int(W), float(interval_phi), int(interval_n),
-        -1.0 if p_n is None else float(p_n), kernels.seed_from(generator),
-        kernels.stream_handle(phi.device))
-    kernels.check(code, 'neighborhood_sweeps')
+    args = (B, N, sweeps, float(kappa), 0 if W == float('inf') else int(W), float(interval_phi),
+            int(interval_n), -1.0 if p_n is None else float(p_n), kernels.seed_from(generator))
+    stream = kernels.stream_handle(phi.device)
+    if plan.regime == 'resident':
+        if cycles is not None and (cycles.shape != (B * plan.cluster, 2)
+                                   or cycles.dtype != torch.int64 or cycles.device != phi.device):
+            raise ValueError(f'cycles must be ({B * plan.cluster}, 2) int64 on {phi.device}')
+        code = lib.sv_sweeps_resident(
+            phi.data_ptr(), n.data_ptr(), phi_out.data_ptr(), n_out.data_ptr(),
+            accepted.data_ptr(), sums.data_ptr(), None if cycles is None else cycles.data_ptr(),
+            *args, plan.cluster, plan.rows, plan.threads, plan.shared_bytes, stream)
+    else:
+        r = torch.empty(n.shape, dtype=torch.float32, device=phi.device)
+        code = lib.sv_sweeps(
+            phi.data_ptr(), n.data_ptr(), phi_out.data_ptr(), n_out.data_ptr(), r.data_ptr(),
+            accepted.data_ptr(), sums.data_ptr(), *args, stream)
+    kernels.check(code, f'neighborhood_sweeps ({plan.regime})')
     neighborhood_sweeps.launches += 1
     per_site = sums / (N * N * sweeps)
     inline = {'ActionDensity': ((kappa / 2) * per_site[:, 0]).float(),

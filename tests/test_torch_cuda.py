@@ -13,8 +13,9 @@ import torch
 from supervillain_tpu_torch.interop import villain_action, worldline_action
 from supervillain_tpu_torch.ops import calculus, kernels
 from supervillain_tpu_torch.ops.hammer import hammer_sweeps
-from supervillain_tpu_torch.ops.sweep import (KernelSweepDraws, lattice, neighborhood_sweeps,
-                                              plain_sweeps)
+from supervillain_tpu_torch.ops.sweep import (STREAMING_PLAN, KernelSweepDraws, SweepPlan,
+                                              kernel_sweeps, lattice, neighborhood_sweeps,
+                                              plain_sweeps, sweep_plan)
 from supervillain_tpu_torch.ops.worm import KernelWormDraws, classic_worms, plain_worms
 from supervillain_tpu_torch.ops.worldline import (KernelWorldlineSweepDraws,
                                                   plain_worldline_sweeps, worldline_sweeps)
@@ -124,6 +125,125 @@ def test_worm_rollback_restores_n_bitwise(cuda):
     assert torch.equal(length, hist.sum(dim=(1, 2)))
     S = villain_action(8, 0.1, 2)
     assert all(S.valid({'n': n_out[b]}) for b in range(128))
+
+
+# -- the sweep kernel's two regimes (csrc/sweep.cu, ops/sweep.py sweep_plan) ------
+
+# (W, interval_n, p_n): plain draws; zero-inflated with the third Philox call;
+# z-mode, zero-inflated.
+SWEEP_MODES = [(1, 1, None), (2, 2, 0.3), (float('inf'), 1, 0.3)]
+
+
+def _warm(B, N, W, seed, device):
+    """Random φ in ±4π and n in W·{-1, 0, 1}: every residual far from zero."""
+    g = torch.Generator().manual_seed(seed)
+    phi = (torch.rand((B, 1, N, N), generator=g) - 0.5) * 8 * math.pi
+    n = torch.randint(-1, 2, (B, 2, N, N), generator=g, dtype=torch.int32)
+    return phi.to(device), (n * (1 if W == float('inf') else W)).to(device)
+
+
+def _plan_sweeps(phi, n, plan, mode, sweeps, seed):
+    W, interval_n, p_n = mode
+    return kernel_sweeps(phi, n, plan, kappa=0.4, W=W, interval_phi=1.5, interval_n=interval_n,
+                         sweeps=sweeps, p_n=p_n, generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize('mode', SWEEP_MODES)
+@pytest.mark.parametrize('N', [2, 6, 10, 130, 250, 256])
+def test_resident_sweeps_repeat_their_plain_version(cuda, N, mode):
+    """The resident kernel (one block at N = 2, 6, 10; a cluster of 2 at 130;
+    of 8 with bands of 31 and 32 rows at 250; of 8 at the main path's 256)
+    against the plain version on the kernel's own draws."""
+    plan = sweep_plan(N)
+    assert plan.regime == 'resident'
+    B, sweeps = (64, 6) if N <= 10 else (3, 2)
+    W, interval_n, p_n = mode
+    phi, n = _warm(B, N, W, N, cuda)
+    before = neighborhood_sweeps.launches
+    got = neighborhood_sweeps(phi, n, kappa=0.4, W=W, interval_phi=1.5, interval_n=interval_n,
+                              sweeps=sweeps, p_n=p_n, generator=torch.Generator().manual_seed(3))
+    assert neighborhood_sweeps.launches == before + 1
+    draws = KernelSweepDraws(kernels.seed_from(torch.Generator().manual_seed(3)), B=B, N=N,
+                             interval_phi=1.5, interval_n=interval_n, p_n=p_n,
+                             zmode=W == float('inf'), fdt=torch.float32, idt=torch.int32,
+                             device=cuda)
+    want = plain_sweeps(phi, n, kappa=0.4, W=W, sweeps=sweeps, draws=draws)
+    assert float(got[2].sum()) > 0
+    assert float((got[0] != want[0]).float().mean()) <= 1e-3
+    assert float((got[1] != want[1]).float().mean()) <= 1e-3
+    assert float((got[2] - want[2]).abs().max()) <= max(2.0, 1e-3 * N * N * sweeps)
+    for k in ('ActionDensity', 'WindingSquared'):
+        torch.testing.assert_close(got[3][k], want[3][k], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize('N', [2, 6, 130, 250, 256])
+def test_resident_and_streaming_regimes_agree_bit_for_bit(cuda, N):
+    """Both regimes run one transition on the same draws: the same φ, n and
+    accepted counts, and inline sums equal up to their summation order."""
+    for mode in SWEEP_MODES:
+        phi, n = _warm(4, N, mode[0], 7, cuda)
+        resident = _plan_sweeps(phi, n, sweep_plan(N), mode, 3, 11)
+        streaming = _plan_sweeps(phi, n, STREAMING_PLAN, mode, 3, 11)
+        for a, b in zip(resident[:3], streaming[:3]):
+            assert torch.equal(a, b)
+        for k in ('ActionDensity', 'WindingSquared'):
+            torch.testing.assert_close(resident[3][k], streaming[3][k], rtol=1e-6, atol=0)
+
+
+def test_streaming_sweeps_at_n512_repeat_their_plain_version(cuda):
+    N, B, mode = 512, 2, SWEEP_MODES[1]
+    assert sweep_plan(N) == STREAMING_PLAN
+    phi, n = _warm(B, N, mode[0], 5, cuda)
+    got = neighborhood_sweeps(phi, n, kappa=0.4, W=2, interval_phi=1.5, interval_n=2, sweeps=2,
+                              p_n=0.3, generator=torch.Generator().manual_seed(4))
+    draws = KernelSweepDraws(kernels.seed_from(torch.Generator().manual_seed(4)), B=B, N=N,
+                             interval_phi=1.5, interval_n=2, p_n=0.3, zmode=False,
+                             fdt=torch.float32, idt=torch.int32, device=cuda)
+    want = plain_sweeps(phi, n, kappa=0.4, W=2, sweeps=2, draws=draws)
+    assert float((got[0] != want[0]).float().mean()) <= 1e-3
+    assert float((got[1] != want[1]).float().mean()) <= 1e-3
+    torch.testing.assert_close(got[3]['ActionDensity'], want[3]['ActionDensity'],
+                               rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize('N', [6, 130, 256])
+def test_resident_sweeps_are_deterministic_for_a_seed(cuda, N):
+    """The inline sums are reduced in a fixed order, never with float atomics."""
+    phi, n = _warm(8, N, 2, 1, cuda)
+    a, b = (_plan_sweeps(phi, n, sweep_plan(N), SWEEP_MODES[1], 4, 2) for _ in range(2))
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+    for k in a[3]:
+        assert torch.equal(a[3][k], b[3][k])
+
+
+@pytest.mark.parametrize('plan', [SweepPlan('resident', 8, 32, 1024, 300_000),
+                                  SweepPlan('resident', 16, 16, 1024, 81_920)])
+def test_an_unschedulable_cluster_raises(cuda, plan):
+    """More shared memory than a block may take, or a cluster above the
+    portable 8 blocks: the launch is refused, and nothing falls back.  The
+    refusal does not linger: the next kernel launch checks clean."""
+    phi, n = _cold(2, 256, cuda)
+    with pytest.raises(RuntimeError, match='resident'):
+        _plan_sweeps(phi, n, plan, SWEEP_MODES[0], 1, 0)
+    m, v = _cold_worldline(2, 8, 2, cuda)
+    _worldline_sweeps(m, v, 2, 1, 0)
+    _plan_sweeps(phi, n, sweep_plan(256), SWEEP_MODES[0], 1, 0)
+    torch.cuda.synchronize()
+
+
+def test_barrier_cycles_are_recorded_on_request(cuda):
+    N = 130
+    plan = sweep_plan(N)
+    phi, n = _warm(3, N, 1, 2, cuda)
+    cycles = torch.zeros((3 * plan.cluster, 2), dtype=torch.int64, device=cuda)
+    timed = kernel_sweeps(phi, n, plan, kappa=0.4, W=1, interval_phi=1.5, interval_n=1,
+                          sweeps=2, generator=torch.Generator().manual_seed(6), cycles=cycles)
+    plain = _plan_sweeps(phi, n, plan, SWEEP_MODES[0], 2, 6)
+    for a, b in zip(timed[:3], plain[:3]):
+        assert torch.equal(a, b)
+    waited, total = cycles[:, 0], cycles[:, 1]
+    assert bool((waited > 0).all()) and bool((total > waited).all())
 
 
 # -- the Worldline kernels (B4–B6) ---------------------------------------------
