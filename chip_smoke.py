@@ -62,6 +62,31 @@ W5. each Worldline kernel at the main path's shape against its plain version
     the plain worm's time) run under a cap of WORM_REPLAY_CAP moves, which
     truncates and rolls back the long ones.
 
+and for the measurement half, downstream of both fleets, on the card:
+
+M1. every observable and derived quantity (and every resampled observable) of
+    a short N=8 Hammer fleet of each action (256 chains, W=2), fields and
+    inline histograms, measured and bootstrapped on the card and by the same
+    code on the CPU in float64 from the same configurations and bootstrap
+    seed: relative agreement within 1e-4, the largest difference of each
+    printed;
+M2. estimators of one correlator against each other at N=8, κ=0.5, W=1 and
+    W=2, per-chain means of 512 chains as independent samples: the Worldline
+    worm's Spin_Spin_Normalized against its taxicab one and against the
+    Villain field's (FFT), the Villain worm's Vortex_Vortex_Normalized against
+    its taxicab one, the Villain Winding_Winding against the Worldline one; a
+    pull under 5 at Δx (0,1), (1,1), (2,0), (4,4), where a taxicab probe is
+    held only if its Kish effective sample size is at least ESS_FRACTION of
+    the samples;
+M3. the main path's published quantities: the vortex (Villain) and spin
+    (Worldline) susceptibilities and critical moments from the per-chain sums
+    of phase 6's and W4's inline histograms, and the Villain spin
+    susceptibilities from phase 6's final φ, bootstrapped on the card with 100
+    draws and printed as Uncertain values, with the seconds each measurement
+    and bootstrap took (host clock around a synchronised run), the NumPy
+    per-chain sum and a float64 host bootstrap beside them; and the taxicab
+    Spin_Spin.Worldline at N=32 over 64 configurations, timed.
+
 The next-to-last line is a JSON object describing each kernel (its
 ``max_abs_err`` from the same-draws phases, its launches on its main path, its
 time, its plain version's time and the least time the card could take for the
@@ -93,6 +118,13 @@ SAME_DRAWS_CHAINS = 1e-2    # fraction of chains whose worm may differ
 SAME_DRAWS_INLINE = 1e-3    # |Δ| of a chain's inline ActionDensity or WindingSquared
 WKAPPA = 0.4            # the worldline exact-distribution check (tests/test_exact_distribution.py)
 WORM_REPLAY_CAP = 4096  # worm moves the plain replay and its timing run at L=256
+MEASURE_RTOL = 1e-4    # float32 measurement on the card against float64 on the CPU (M1)
+PULL_BOUND = 5.0       # estimators of one correlator against each other (M2)
+# A taxicab estimator averages reweighting factors e^{-ΔS} whose logarithm
+# spreads as the path grows; where a few samples carry the average its
+# bootstrap error means nothing, so M2 holds a taxicab probe to PULL_BOUND only
+# where Kish's effective sample size is at least this fraction of the samples.
+ESS_FRACTION = 0.1
 
 # The least time the card could take for a call (PERF.md): the larger of the
 # bytes it must move (each input read once, each output written once) over the
@@ -530,6 +562,13 @@ def phase_main_path(torch, card):
         f'truncated worms {frac!r} (budget {TRUNCATION_BUDGET})')
     if frac > TRUNCATION_BUDGET:
         say('  WARNING: truncated-worm fraction above the budget')
+    # What M3 measures: the per-chain sums of the kept histograms, reduced on
+    # the host as a user of the fleet's columns would, and the final φ.
+    t0 = time.perf_counter()
+    sums = fleet.columns['Vortex_Vortex'][cut:].sum(axis=0)
+    kept = {'action': S, 'Vortex_Vortex': sums, 'phi': fleet.final['phi'],
+            'reduce_s': time.perf_counter() - t0, 'record_s': elapsed / steps,
+            'records': steps - cut}
 
     # Times at the main path's shape, from its final state.
     host = torch.Generator().manual_seed(9)
@@ -614,7 +653,7 @@ def phase_main_path(torch, card):
         f'plain {plain_ms["worm"]!r} ms; bound {bounds["worm"]}')
     say(f'  [{card}] hammer {ms["hammer"]!r} ms per call; plain sweep + plain worm '
         f'{plain_ms["hammer"]!r} ms; bound {bounds["hammer"]}')
-    return launches, ms, plain_ms, bounds, (phi, n)
+    return launches, ms, plain_ms, bounds, (phi, n), kept
 
 
 def differ(a, b):
@@ -919,6 +958,10 @@ def phase_worldline_main_path(torch, card):
         f'(budget {TRUNCATION_BUDGET})')
     if frac > TRUNCATION_BUDGET:
         say('  WARNING: truncated-worm fraction above the budget')
+    t0 = time.perf_counter()
+    sums = fleet.columns['Spin_Spin'][cut:].sum(axis=0)
+    kept = {'action': S, 'Spin_Spin': sums, 'reduce_s': time.perf_counter() - t0,
+            'record_s': elapsed / steps, 'records': steps - cut}
     del fleet, e
 
     # Times at the main path's shape, from its final state.
@@ -994,7 +1037,7 @@ def phase_worldline_main_path(torch, card):
         f'{float(plain_truncated.sum())!r} of {B} worms truncated)')
     say(f'  [{card}] worldline hammer {ms["worldline_hammer"]!r} ms per call; plain sweep + plain '
         f'capped worm {plain_ms["worldline_hammer"]!r} ms; bound {bounds["worldline_hammer"]}')
-    return launches, ms, plain_ms, bounds, (m, v)
+    return launches, ms, plain_ms, bounds, (m, v), kept
 
 
 def compare_worldline_sweeps(name, got, want):
@@ -1072,6 +1115,221 @@ def phase_worldline_same_draws(torch, final):
     return err
 
 
+# -- the measurement half: observables, derived quantities, bootstrap ----------
+
+def relative_difference(card, cpu):
+    """max |card − cpu| over max |cpu| (norm-wise, so entries near zero count
+    for what they weigh)."""
+    card, cpu = np.asarray(card, dtype=np.complex128), np.asarray(cpu, dtype=np.complex128)
+    return float(np.abs(card - cpu).max() / max(np.abs(cpu).max(), 1e-300))
+
+
+def short_fleet(sv, S, chains, steps, thin, seed):
+    """A Hammer fleet on the card with its fields kept (W3's zero-inflated Δn
+    for the Villain sweep, which thermalizes it sooner)."""
+    villain = isinstance(S, sv.Villain)
+    return sv.sample_fused_fleet(S, chains=chains, steps=steps, thin=thin, worms=1,
+                                 keep_fields=True, seed=seed, p_n=0.1 if villain else None)
+
+
+def phase_card_against_cpu(torch):
+    """M1: every observable and derived quantity measured and bootstrapped on
+    the card against the same port code on the CPU in float64."""
+    import supervillain_tpu_torch as sv
+    from supervillain_tpu_torch.observables import derived_registry, registry
+
+    N, B, kappa, W = 8, 256, 0.5, 2
+    say(f'== phase M1: measurement on the card against the CPU in float64 (N={N}, {B} chains, '
+        f'κ={kappa}, W={W}; relative bound {MEASURE_RTOL})')
+    worst = 0.0
+    for Action, histogram in ((sv.Villain, 'Vortex_Vortex'), (sv.Worldline, 'Spin_Spin')):
+        S = Action(sv.Lattice2D(N), kappa, W=W)
+        fleet = short_fleet(sv, S, B, steps=3, thin=20, seed=41)
+        last = {k: v[-1] for k, v in fleet.columns.items()}
+        prefix = histogram.split('_')[0]
+        cases = (
+            ('fields', {k: last[k] for k in S.fields}, sorted(registry), sorted(derived_registry)),
+            ('inline histogram', {histogram: last[histogram]}, [histogram],
+             [f'{histogram}_Normalized', f'{prefix}Susceptibility',
+              f'{prefix}SusceptibilityScaled', f'{prefix}CriticalMoment']))
+        for label, columns, primaries, derived in cases:
+            values = {}
+            for device in ('cuda', 'cpu'):
+                e = sv.Ensemble(S).from_configurations(sv.Configurations(dict(columns)),
+                                                       device=device)
+                boot = sv.Bootstrap(e, draws=100, seed=3)
+                values[device] = {**{name: getattr(e, name) for name in primaries},
+                                  **{f'Bootstrap.{name}': getattr(boot, name)
+                                     for name in primaries + derived}}
+            diffs = {name: relative_difference(values['cuda'][name], values['cpu'][name])
+                     for name in values['cpu']}
+            say(f'  {type(S).__name__}, {label}: largest relative difference of each')
+            for name, d in diffs.items():
+                say(f'    {name}: {d!r}')
+            worst = max(worst, *diffs.values())
+            bad = {k: d for k, d in diffs.items() if not d <= MEASURE_RTOL}
+            require(not bad, f'M1: card and CPU disagree on {bad}')
+    say(f'  worst relative difference {worst!r} (bound {MEASURE_RTOL})')
+
+
+def effective_fraction(values):
+    """Kish's effective sample size of positive reweighting samples, (Σx)²/Σx²,
+    as a fraction of their number, at every displacement of (samples, N, N)."""
+    x = np.abs(np.asarray(values, dtype=np.float64))
+    return x.sum(axis=0) ** 2 / np.maximum((x ** 2).sum(axis=0), 1e-300) / len(x)
+
+
+def pull(m1, e1, m2, e2):
+    """|m1 − m2| in combined standard errors (0 where the two are equal)."""
+    diff, scale = abs(float(m1) - float(m2)), math.hypot(float(e1), float(e2))
+    return 0.0 if diff == 0 else diff / scale if scale > 0 else math.inf
+
+
+def per_chain_means(values, records, chains):
+    """(records·chains, ...) values pooled record-major → (chains, ...) means."""
+    return np.asarray(values).reshape((records, chains) + np.shape(values)[1:]).mean(axis=0)
+
+
+def phase_estimators(torch):
+    """M2: estimators of the same correlator against each other, with
+    per-chain means as independent samples."""
+    import supervillain_tpu_torch as sv
+
+    N, B, kappa, steps, cut, thin = 8, 512, 0.5, 60, 20, 20
+    probes = ((0, 1), (1, 1), (2, 0), (4, 4))
+    say(f'== phase M2: estimators against each other (N={N}, {B} chains, κ={kappa}, '
+        f'{steps - cut} records of {thin} sweeps and a worm after {cut}; pull bound {PULL_BOUND} '
+        f'at Δx in {probes})')
+    for W in (1, 2):
+        chains, ess = {}, {}
+        for Action in (sv.Villain, sv.Worldline):
+            S = Action(sv.Lattice2D(N), kappa, W=W)
+            e = short_fleet(sv, S, B, steps, thin, seed=50 + W).pooled_ensemble(cut)
+            records = steps - cut
+            name = type(S).__name__
+            histogram = 'Vortex_Vortex' if name == 'Villain' else 'Spin_Spin'
+            columns = {'worm': getattr(e, histogram), 'Winding_Winding': e.Winding_Winding}
+            del e.configuration.fields[histogram]      # measure it again, by the taxicab
+            columns['taxicab'] = getattr(e, histogram)
+            ess[name] = effective_fraction(columns['taxicab'])
+            if name == 'Villain':
+                columns['field spin'] = e.Spin_Spin
+            for k, v in columns.items():
+                chains[name, k] = per_chain_means(v, records, B)
+
+        def estimate(S, name, column, derived):
+            e = sv.Ensemble(S).from_configurations(sv.Configurations({name: column}))
+            value = getattr(sv.Bootstrap(e, draws=200, seed=W), derived).real
+            return value.mean(axis=0), value.std(axis=0)
+
+        V = sv.Villain(sv.Lattice2D(N), kappa, W=W)
+        WL = sv.Worldline(sv.Lattice2D(N), kappa, W=W)
+        everywhere = np.ones((N, N))
+        pairs = (
+            ('Spin_Spin_Normalized: Worldline worm against Worldline taxicab',
+             (WL, 'Spin_Spin', chains['Worldline', 'worm']),
+             (WL, 'Spin_Spin', chains['Worldline', 'taxicab']), 'Spin_Spin_Normalized',
+             ess['Worldline']),
+            ('Spin_Spin_Normalized: Villain field (FFT) against Worldline worm',
+             (V, 'Spin_Spin', chains['Villain', 'field spin']),
+             (WL, 'Spin_Spin', chains['Worldline', 'worm']), 'Spin_Spin_Normalized', everywhere),
+            ('Vortex_Vortex_Normalized: Villain worm against Villain taxicab',
+             (V, 'Vortex_Vortex', chains['Villain', 'worm']),
+             (V, 'Vortex_Vortex', chains['Villain', 'taxicab']), 'Vortex_Vortex_Normalized',
+             ess['Villain']),
+            ('Winding_Winding: Villain against Worldline',
+             (V, 'Winding_Winding', chains['Villain', 'Winding_Winding']),
+             (WL, 'Winding_Winding', chains['Worldline', 'Winding_Winding']), 'Winding_Winding',
+             everywhere),
+        )
+        for label, a, b, derived, fraction in pairs:
+            (ma, ea), (mb, eb) = estimate(*a, derived), estimate(*b, derived)
+            pulls = [pull(ma[dx], ea[dx], mb[dx], eb[dx]) for dx in probes]
+            held = [fraction[dx] >= ESS_FRACTION for dx in probes]
+            say(f'  W={W} {label}: ' + '; '.join(
+                f'{dx} {float(ma[dx])!r}±{float(ea[dx])!r} vs {float(mb[dx])!r}±'
+                f'{float(eb[dx])!r} pull {p:.3f}'
+                + ('' if h else f' (not held: taxicab ESS {float(fraction[dx])!r} of the samples)')
+                for dx, p, h in zip(probes, pulls, held)))
+            bad = [p for p, h in zip(pulls, held) if h and not p < PULL_BOUND]
+            require(not bad, f'M2: W={W} {label} disagree (pulls {pulls})')
+
+
+def timed_s(torch, fn):
+    """Seconds of ``fn`` on the host clock, the card synchronised before and
+    after, and its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def phase_published_quantities(torch, card, villain, worldline):
+    """M3: the main path's published quantities, measured and bootstrapped on
+    the card, with the seconds each step took."""
+    import supervillain_tpu_torch as sv
+
+    draws = 100
+    say(f'== phase M3: the main path\'s published quantities on the card (L=256, 512 chains, '
+        f'{draws} bootstrap draws)')
+    for kept, histogram in ((villain, 'Vortex_Vortex'), (worldline, 'Spin_Spin')):
+        S = kept['action']
+        prefix = histogram.split('_')[0]
+        e = sv.Ensemble(S).from_configurations(sv.Configurations({histogram: kept[histogram]}))
+        boot_s, boot = timed_s(torch, lambda: sv.Bootstrap(e, draws=draws, seed=0))
+        names = [f'{prefix}Susceptibility', f'{prefix}SusceptibilityScaled',
+                 f'{prefix}CriticalMoment']
+        seconds, values = timed_s(torch, lambda: {n: getattr(boot, n) for n in names})
+        # A draw's derived quantities are defined where its resampled histogram
+        # holds tallies at the origin, by which they are normalized.
+        defined = getattr(boot, histogram)[:, 0, 0] > 0
+        require(all(np.isfinite(v[defined]).all() for v in values.values()),
+                f'M3: non-finite {names} in draws with tallies at the origin')
+        report = ', '.join(f'{n} = {sv.Uncertain(v[defined].mean(), v[defined].std())}'
+                           for n, v in values.items()) if defined.any() else 'undefined'
+        say(f'  {type(S).__name__}, per-chain sums of {kept["records"]} records of the inline '
+            f'{histogram} ({float(kept[histogram][:, 0, 0].sum())!r} tallies at the origin over '
+            f'all chains; {int(defined.sum())} of {draws} draws hold some): {report}')
+        # The same bootstrap on the host CPU, in float64, for comparison.
+        cpu = sv.Ensemble(S).from_configurations(sv.Configurations({histogram: kept[histogram]}),
+                                                 device='cpu')
+        cpu_s, _ = timed_s(torch, lambda: getattr(sv.Bootstrap(cpu, draws=draws, seed=0),
+                                                  names[0]))
+        say(f'  [{card}] {type(S).__name__} histograms: NumPy per-chain sum on the host '
+            f'{kept["reduce_s"]!r} s; bootstrap on the card {boot_s + seconds!r} s ({draws} '
+            f'draws, the product and the three derived quantities), on the host CPU in float64 '
+            f'{cpu_s!r} s (the product and {names[0]}); a record of the fleet '
+            f'{kept["record_s"]!r} s')
+
+        if histogram == 'Vortex_Vortex':
+            field = sv.Ensemble(S).from_configurations(sv.Configurations({'phi': kept['phi']}))
+            measure_s, spin = timed_s(torch, lambda: field.Spin_Spin)
+            B, _, N, _ = kept['phi'].shape
+            require(spin.shape == (B, N, N) and np.isfinite(spin).all(),
+                    'M3: bad Spin_Spin of the final φ')
+            names = ['SpinSusceptibility', 'SpinSusceptibilityScaled']
+            seconds, values = timed_s(torch, lambda: {
+                n: getattr(b, n) for b in [sv.Bootstrap(field, draws=draws, seed=0)] for n in names})
+            require(all(np.isfinite(v).all() for v in values.values()), f'M3: non-finite {names}')
+            report = ', '.join(f'{n} = {sv.Uncertain(v.mean(), v.std())}' for n, v in values.items())
+            say(f'  Villain, Spin_Spin.Villain of the final φ of {B} chains: {report}')
+            say(f'  [{card}] Spin_Spin.Villain (FFT) of {B} fields of {N}²: {measure_s!r} s; '
+                f'its bootstrap and derived quantities {seconds!r} s')
+
+    # The taxicab route at N=32: O(N⁵) gathers a configuration.
+    S = sv.Worldline(sv.Lattice2D(32), 0.5, W=2)
+    fleet = sv.sample_fused_fleet(S, chains=64, steps=1, thin=20, worms=1, keep_fields=True,
+                                  seed=61)
+    e = sv.Ensemble(S).from_configurations(sv.Configurations(
+        {k: fleet.columns[k][-1] for k in S.fields}))
+    e.Links
+    seconds, taxicab = timed_s(torch, lambda: e.Spin_Spin)
+    require(taxicab.shape == (64, 32, 32) and np.isfinite(taxicab).all(), 'M3: bad taxicab')
+    say(f'  [{card}] Spin_Spin.Worldline (taxicab) at N=32 over 64 configurations: {seconds!r} s '
+        f'({seconds / 64 * 1e3!r} ms a configuration)')
+
+
 def main():
     import torch
 
@@ -1085,14 +1343,19 @@ def main():
     phase_sweep(torch)
     phase_worm(torch)
     phase_invariants(torch)
-    launches, ms, plain_ms, bounds, final = phase_main_path(torch, card)
+    launches, ms, plain_ms, bounds, final, villain_kept = phase_main_path(torch, card)
     err = phase_same_draws(torch, final)
     del final
     phase_worldline_sweep(torch)
     phase_worldline_exact(torch)
     phase_duality(torch)
-    w_launches, w_ms, w_plain_ms, w_bounds, w_final = phase_worldline_main_path(torch, card)
+    w_launches, w_ms, w_plain_ms, w_bounds, w_final, worldline_kept = \
+        phase_worldline_main_path(torch, card)
     err |= phase_worldline_same_draws(torch, w_final)
+    del w_final
+    phase_card_against_cpu(torch)
+    phase_estimators(torch)
+    phase_published_quantities(torch, card, villain_kept, worldline_kept)
     launches |= w_launches
     ms |= w_ms
     plain_ms |= w_plain_ms

@@ -1,10 +1,11 @@
 """PyTorch and CUDA port of supervillain_tpu: the Villain and Worldline fused
-Hammer fleets on one GPU.
+Hammer fleets on one GPU, their observables, the bootstrap and HDF5 I/O.
 
 The fused sweep and worm kernels are CUDA C++ for Hopper (``csrc/``), built at
 first use; every kernel has a plain PyTorch twin that runs for tensors on the
-CPU.  Entry points run on the card unless the caller passes ``device='cpu'``.
-This package never imports JAX.
+CPU.  Entry points, measurements and the bootstrap run on the card unless the
+caller passes ``device='cpu'``.  This package never imports JAX, and importing
+it needs no ``h5py``.
 """
 
 from .ops import Lattice, Lattice2D
@@ -16,13 +17,15 @@ from .generators import (Generator, NeighborhoodUpdate, ExactNeighborhoodUpdate,
 from .configurations import Configurations
 from .ensemble import Ensemble
 from . import observables
-from .analysis import Bootstrap, autocorrelation, autocorrelation_time
+from .analysis import Blocking, Bootstrap, Uncertain, autocorrelation, autocorrelation_time
 from .parallel import Fleet, sample_fused_fleet
+from . import io, h5
 
 __all__ = [
     'Lattice', 'Lattice2D', 'Villain', 'Worldline', 'Generator', 'NeighborhoodUpdate',
     'ExactNeighborhoodUpdate', 'ClassicWorm', 'FusedNeighborhoodUpdate',
     'FusedExactNeighborhoodUpdate', 'FusedHammer', 'FusedClassicWorm', 'FusedWorldlineUpdate',
     'FusedWorldlineWorm', 'FusedWorldlineHammer', 'Configurations', 'Ensemble', 'observables',
-    'Bootstrap', 'autocorrelation', 'autocorrelation_time', 'Fleet', 'sample_fused_fleet',
+    'Blocking', 'Bootstrap', 'Uncertain', 'autocorrelation', 'autocorrelation_time', 'Fleet',
+    'sample_fused_fleet', 'io', 'h5',
 ]

@@ -1,7 +1,7 @@
 """Host-side containers for Markov-chain draws.
 
-Copy of :class:`supervillain_tpu.configurations.Configurations` without its
-HDF5 methods: a dict of per-field NumPy columns with the draw axis first.
+Copy of :class:`supervillain_tpu.configurations.Configurations`: a dict of
+per-field NumPy columns with the draw axis first, with its HDF5 methods.
 """
 
 from __future__ import annotations
@@ -73,3 +73,24 @@ class Configurations:
         for k, column in self.fields.items():
             if k in cfg:
                 column[index] = _check_dtype(cfg[k], column.dtype)
+
+    # -- persistence -------------------------------------------------------
+
+    def to_h5(self, group):
+        for k, v in self.fields.items():
+            ds = group.create_dataset(k, data=np.asarray(v),
+                                      maxshape=(None,) + np.asarray(v).shape[1:])
+            ds.attrs['column'] = True
+
+    @classmethod
+    def from_h5(cls, group):
+        return cls({k: np.asarray(group[k]) for k in group})
+
+    def extend_h5(self, group):
+        """Append our draws to existing resizable datasets."""
+        for k, v in self.fields.items():
+            v = np.asarray(v)
+            ds = group[k]
+            start = ds.shape[0]
+            ds.resize(start + v.shape[0], axis=0)
+            ds[start:] = v

@@ -7,6 +7,7 @@ raises; it never falls back to the CPU on its own.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -35,3 +36,28 @@ def float_dtype_of(field):
     if field.is_floating_point():
         return field.dtype
     return torch.float64 if field.dtype == torch.int64 else torch.float32
+
+
+def complex_dtype(device):
+    """The complex dtype that goes with a device's float fields: complex64 on a
+    GPU, complex128 on the CPU."""
+    return torch.complex64 if torch.device(device).type == 'cuda' else torch.complex128
+
+
+def to_device(value, device):
+    """A host value (NumPy array, number or tensor) as a tensor on ``device``,
+    in the device's dtypes: floats as :func:`field_dtypes`' float, complex
+    numbers as :func:`complex_dtype`, integers as its int; booleans stay."""
+    if isinstance(value, np.ndarray) and not (value.flags.c_contiguous and value.flags.writeable):
+        value = np.array(value)     # a view torch cannot share (reversed, read-only)
+    t = torch.as_tensor(value)
+    fdt, idt = field_dtypes(device)
+    if t.is_complex():
+        dtype = complex_dtype(device)
+    elif t.is_floating_point():
+        dtype = fdt
+    elif t.dtype == torch.bool:
+        dtype = torch.bool
+    else:
+        dtype = idt
+    return t.to(device=device, dtype=dtype)

@@ -79,6 +79,10 @@ class ExactNeighborhoodUpdate(NeighborhoodUpdate):
     def _kernel_W(self):
         return float('inf')
 
+    # The JAX package's names of the Δz interval and zero-inflation.
+    interval_z = property(lambda self: self.interval_n)
+    p_z = property(lambda self: self.p_n)
+
 
 class ClassicWorm(Generator):
     r"""Prokof'ev–Svistunov worm on the plaquettes: tallies the inline

@@ -69,6 +69,10 @@ class FusedExactNeighborhoodUpdate(FusedNeighborhoodUpdate):
         self.p_n = None if p_z is None else float(p_z)
         self._kernel_W = float('inf')
 
+    # The JAX package's names of the Δz interval and zero-inflation.
+    interval_z = property(lambda self: self.interval_n)
+    p_z = property(lambda self: self.p_n)
+
 
 class FusedHammer(Generator):
     """``sweeps_per_step`` neighborhood sweeps then ``worms`` classic worms per

@@ -12,6 +12,7 @@ import torch
 
 from ..device import field_dtypes, resolve_device
 from ..ops import Lattice
+from ..ops.lattice import lattice_from_h5
 from ..ops import calculus as calc
 
 
@@ -76,3 +77,15 @@ class Villain:
         dn = calc.d(self.Lattice, 1, configuration['n'])
         zero = torch.remainder(dn, self.W) if self.W < float('inf') else dn
         return bool((zero == 0).all())
+
+    def to_h5(self, group):
+        group.attrs['type'] = 'Villain'
+        self.Lattice.to_h5(group.create_group('lattice'))
+        group['kappa'] = self.kappa
+        group['W'] = self.W
+
+    @classmethod
+    def from_h5(cls, group):
+        W = float(np.asarray(group['W']))
+        return cls(lattice_from_h5(group['lattice']), float(np.asarray(group['kappa'])),
+                   W if W == float('inf') else int(W))

@@ -13,6 +13,7 @@ import torch
 
 from ..device import field_dtypes, float_dtype_of, resolve_device
 from ..ops import Lattice
+from ..ops.lattice import lattice_from_h5
 from ..ops import calculus as calc
 
 
@@ -95,3 +96,15 @@ class Worldline:
         lam = torch.div(v, self.W, rounding_mode='floor')
         return dict(configuration) | {'m': configuration['m'] - calc.delta(self.Lattice, 2, lam),
                                       'v': torch.remainder(v, self.W)}
+
+    def to_h5(self, group):
+        group.attrs['type'] = 'Worldline'
+        self.Lattice.to_h5(group.create_group('lattice'))
+        group['kappa'] = self.kappa
+        group['W'] = self.W
+
+    @classmethod
+    def from_h5(cls, group):
+        W = float(np.asarray(group['W']))
+        return cls(lattice_from_h5(group['lattice']), float(np.asarray(group['kappa'])),
+                   W if W == float('inf') else int(W))

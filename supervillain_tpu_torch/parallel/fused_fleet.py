@@ -151,4 +151,4 @@ def sample_fused_fleet(action, *, chains, steps, thin=10, seed=0, interval_phi=n
     }}
     final = {names[0]: a.cpu().numpy(), names[1]: b.cpu().numpy()}
     index = thin * (1 + np.arange(steps))
-    return Fleet(action, columns, stats, final, index)
+    return Fleet(action, columns, stats, final, index, device=device)

@@ -7,9 +7,11 @@ On a machine with a card (which need not have JAX):
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
+import supervillain_tpu_torch as tsv
 from supervillain_tpu_torch.interop import villain_action, worldline_action
 from supervillain_tpu_torch.ops import calculus, kernels
 from supervillain_tpu_torch.ops.hammer import hammer_sweeps
@@ -420,3 +422,97 @@ def test_worldline_worms_at_n_not_a_power_of_two(cuda, N, W, cap):
     assert torch.equal(length, hist.sum(dim=(1, 2)))
     assert bool((truncated > 0).any()) == (cap is not None)
     assert bool((calculus.delta(lattice(N), 1, m_out) == 0).all())
+
+
+# -- the measurement half: observables, derived quantities and the bootstrap ----
+
+MEASURE_RTOL = 1e-4     # float32 on the card against float64 on the CPU
+
+
+def _measurement_configurations(action, N, count, seed=5):
+    """The fields of ``count`` chains after a short Hammer run on the card (W=2,
+    κ=0.5): configurations with the magnitudes the measurements see in use."""
+    S = (villain_action if action == 'Villain' else worldline_action)(N, 0.5, 2)
+    fleet = tsv.sample_fused_fleet(S, chains=count, steps=2, thin=10, worms=1, keep_fields=True,
+                                   seed=seed, p_n=0.1 if action == 'Villain' else None)
+    return {k: fleet.columns[k][-1] for k in S.fields}
+
+
+def _relative(card, cpu):
+    card, cpu = np.asarray(card, dtype=np.complex128), np.asarray(cpu, dtype=np.complex128)
+    return float(np.abs(card - cpu).max() / max(np.abs(cpu).max(), 1e-300))
+
+
+@pytest.mark.parametrize('action', ['Villain', 'Worldline'])
+def test_measurements_on_the_card_match_the_cpu(cuda, action):
+    """Every observable, every resampled observable and every derived quantity,
+    measured on the card in float32 and on the CPU in float64 from the same
+    configurations and bootstrap seed, agree to 1e-4 relative."""
+    S = (villain_action if action == 'Villain' else worldline_action)(6, 0.5, 2)
+    cfgs = _measurement_configurations(action, 6, 48)
+    values = {}
+    for device in ('cuda', 'cpu'):
+        e = tsv.Ensemble(S).from_configurations(tsv.Configurations(dict(cfgs)), device=device)
+        boot = tsv.Bootstrap(e, draws=50, seed=3)
+        values[device] = {**e.measure(),
+                          **{f'Bootstrap.{n}': getattr(boot, n)
+                             for n in sorted(tsv.observables.registry)
+                             + sorted(tsv.observables.derived_registry)}}
+    assert set(values['cuda']) == set(values['cpu'])
+    diffs = {n: _relative(values['cuda'][n], values['cpu'][n]) for n in values['cpu']}
+    bad = {n: d for n, d in diffs.items() if not d <= MEASURE_RTOL}
+    assert not bad, bad
+
+
+@pytest.mark.parametrize('histogram', ['Vortex_Vortex', 'Spin_Spin'])
+def test_histogram_bootstrap_on_the_card_matches_the_cpu(cuda, histogram):
+    """Per-chain inline histograms (as the main path keeps them) bootstrapped
+    as one product on the card and on the CPU."""
+    rng = np.random.default_rng(9)
+    hist = rng.integers(0, 40, size=(128, 16, 16)).astype(np.float32)
+    hist[:, 0, 0] += 200
+    S = (villain_action if histogram == 'Vortex_Vortex' else worldline_action)(16, 0.5, 2)
+    prefix = histogram.split('_')[0]
+    names = [f'{histogram}_Normalized', f'{prefix}Susceptibility',
+             f'{prefix}SusceptibilityScaled', f'{prefix}CriticalMoment']
+    got = {}
+    for device in ('cuda', 'cpu'):
+        e = tsv.Ensemble(S).from_configurations(tsv.Configurations({histogram: hist}),
+                                                device=device)
+        boot = tsv.Bootstrap(e, draws=100, seed=7)
+        got[device] = [getattr(boot, n) for n in names]
+    for name, a, b in zip(names, got['cuda'], got['cpu']):
+        assert _relative(a, b) <= MEASURE_RTOL, name
+
+
+def test_a_card_ensemble_measures_and_bootstraps_on_the_card(cuda, monkeypatch):
+    """The operands of a measurement and of the resampling product are on the
+    card; nothing runs on the CPU by itself."""
+    from supervillain_tpu_torch.observables.spin import Spin_Spin
+    seen = []
+    villain = Spin_Spin.Villain
+
+    def spy(S, phi):
+        seen.append(phi.device.type)
+        return villain(S, phi)
+
+    monkeypatch.setattr(Spin_Spin, 'Villain', staticmethod(spy))
+    S = villain_action(6, 0.5, 2)
+    e = tsv.Ensemble(S).from_configurations(
+        tsv.Configurations(_measurement_configurations('Villain', 6, 10)))
+    boot = tsv.Bootstrap(e, draws=5, seed=1)
+    assert np.isfinite(boot.SpinSusceptibility).all()
+    assert seen == ['cuda']
+    (kw, norm), = [v for k, v in boot.__dict__.items() if isinstance(k, tuple)]
+    assert kw.device.type == 'cuda' and kw.dtype == torch.float32
+
+
+def test_a_card_fleet_measures_on_the_card(cuda):
+    S = worldline_action(8, 0.5, 2)
+    fleet = tsv.sample_fused_fleet(S, chains=16, steps=3, thin=2, worms=1, keep_fields=True,
+                                   seed=4)
+    e = fleet.pooled_ensemble(1)
+    assert torch.device(e.device).type == 'cuda'
+    boot = tsv.Bootstrap(e, draws=20, seed=0)
+    for name in ('SpinSusceptibility', 'VortexCriticalMoment', 'Action_Action'):
+        assert np.isfinite(getattr(boot, name)).all()

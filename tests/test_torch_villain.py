@@ -56,7 +56,7 @@ def test_observables_match_jax(W):
     ref_e = jsv.Ensemble(jsv.Villain(jsv.Lattice2D(N), kappa, W=W)).from_configurations(
         jsv.Configurations(cfgs))
     ours_e = tsv.Ensemble(villain_action(N, kappa, W)).from_configurations(
-        tsv.Configurations(cfgs))
+        tsv.Configurations(cfgs), device='cpu')
     np.testing.assert_allclose(ours_e.ActionDensity, np.asarray(ref_e.ActionDensity),
                                rtol=1e-12, atol=1e-12)
     # The JAX package measures mean(dn²) in float32 (int64 promotes with float32
@@ -70,7 +70,8 @@ def test_observables_match_jax(W):
 def test_inline_column_short_circuits_measurement():
     cfgs = _configurations(np.random.default_rng(3), 4, 1, 2)
     cfgs['ActionDensity'] = np.array([1.5, 2.5])
-    e = tsv.Ensemble(villain_action(4, 0.5, 1)).from_configurations(tsv.Configurations(cfgs))
+    e = tsv.Ensemble(villain_action(4, 0.5, 1)).from_configurations(tsv.Configurations(cfgs),
+                                                                    device='cpu')
     np.testing.assert_array_equal(e.ActionDensity, [1.5, 2.5])
 
 

@@ -76,7 +76,7 @@ def test_observables_match_jax(W):
     ref = jsv.Ensemble(jsv.Worldline(jsv.Lattice2D(N), kappa, W=W)).from_configurations(
         jsv.Configurations(cfgs))
     ours = tsv.Ensemble(worldline_action(N, kappa, W)).from_configurations(
-        tsv.Configurations(cfgs))
+        tsv.Configurations(cfgs), device='cpu')
     np.testing.assert_allclose(ours.Links, np.asarray(ref.Links), rtol=0, atol=1e-12)
     np.testing.assert_allclose(ours.ActionDensity, np.asarray(ref.ActionDensity), rtol=1e-12)
 

@@ -24,7 +24,9 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _estimate(module, action, columns):
-    e = module.Ensemble(action).from_configurations(module.Configurations(columns))
+    # The port measures on the card unless told otherwise; these tests run on the CPU.
+    where = {'device': 'cpu'} if module is tsv else {}
+    e = module.Ensemble(action).from_configurations(module.Configurations(columns), **where)
     boot = module.Bootstrap(e, draws=200, seed=0)
     return {k: boot.estimate(k) for k in columns}
 

@@ -123,7 +123,8 @@ def test_wrapper_on_cpu_keeps_constraint_and_inline_action(W):
     np.testing.assert_allclose(inline['ActionDensity'].numpy(),
                                (0.5 / kappa * (u * u).sum(dim=(1, 2, 3)) / N ** 2).numpy(),
                                rtol=1e-12)
-    e = tsv.Ensemble(S).from_configurations(tsv.Configurations({'m': m.numpy(), 'v': v.numpy()}))
+    e = tsv.Ensemble(S).from_configurations(tsv.Configurations({'m': m.numpy(), 'v': v.numpy()}),
+                                            device='cpu')
     np.testing.assert_allclose(inline['ActionDensity'].numpy(), 1 - e.ActionDensity, rtol=1e-12)
 
 
