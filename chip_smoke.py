@@ -85,12 +85,34 @@ M3. the main path's published quantities: the vortex (Villain) and spin
     draws and printed as Uncertain values, with the seconds each measurement
     and bootstrap took (host clock around a synchronised run), the NumPy
     per-chain sum and a float64 host bootstrap beside them; and the taxicab
-    Spin_Spin.Worldline at N=32 over 64 configurations, timed.
+    Spin_Spin.Worldline at N=32 over 64 configurations, timed;
+
+and for the general generator path (every eager update, the combinators, both
+Hammers and ``sample_fleet``), with the plain twins of B1, B2 and B5 made to
+raise if handed a CUDA tensor:
+
+G1. ``sample_fleet`` on the card against the exact N=2 distributions, the cases
+    of tests/test_exact_distribution.py (the Worldline Hammer at W=1 and, worm
+    capped at 6, at W=2; the Villain ClassicWorm and ChunkedWorm(12) at W=1;
+    the W=2 worm unbounded and capped at 8; the z-only ExactNeighborhoodUpdate
+    at W=∞): χ²/dof < 3.5 each, and B1, B2 and B5 launched;
+G2. ``sample_fleet(S, Hammer(S, fleet=True))``: (a) at L=64, 1024 chains, κ=0.5,
+    thin=4 (Villain W=2 on B2, Villain W=1 with the ChunkedWorm, Worldline W=2
+    on B5) against ``sample_fused_fleet`` of the same action and shape,
+    per-chain means of the registry ActionDensity after a cut within a pull of
+    5; (b) at L=256, 512 chains, W=2, thin=4, 10 records, both actions, timed:
+    seconds per record, site-updates/s, each kernel's launches, one record's
+    device time by kind against its wall time, and the ChunkedWorm's ms per
+    step;
+G3. ``Ensemble.generate`` with the generic Villain Hammer on the card (N=8,
+    W=2), ``every(2)`` → ``continue_from``, and, where ``h5py`` imports, the h5
+    round trip of its generator tree.
 
 The next-to-last line is a JSON object describing each kernel (its
 ``max_abs_err`` from the same-draws phases, its launches on its main path, its
 time, its plain version's time and the least time the card could take for the
-same work); the last line is ``{"ok": true, "device": {...}}``.  Nothing of
+same work; ``launches_by_path`` splits its launches by the path that made
+them); the last line is ``{"ok": true, "device": {...}}``.  Nothing of
 JAX is imported.
 """
 
@@ -1330,6 +1352,347 @@ def phase_published_quantities(torch, card, villain, worldline):
         f'({seconds / 64 * 1e3!r} ms a configuration)')
 
 
+# -- the general generator path: eager updates, combinators, Hammers, sample_fleet --
+
+#: The plain twins of the kernels that the general path's eager steps reach.
+PLAIN_TWINS = (('supervillain_tpu_torch.ops.sweep', 'plain_sweeps'),
+               ('supervillain_tpu_torch.ops.worm', 'plain_worms'),
+               ('supervillain_tpu_torch.ops.worldline_worm', 'plain_worldline_worms'))
+
+
+class PlainTwinsRefused:
+    """Inside the block a plain twin handed a CUDA tensor raises: on the card
+    the eager steps must launch the kernels (B1, B2, B5), never their twins."""
+
+    def __enter__(self):
+        import importlib
+        import torch
+        self.saved = []
+        for module_name, name in PLAIN_TWINS:
+            module = importlib.import_module(module_name)
+            plain = getattr(module, name)
+
+            def guard(*args, _plain=plain, _name=name, **kwargs):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda
+                       for a in (*args, *kwargs.values())):
+                    raise SmokeFailure(f'{_name} was entered with a CUDA tensor')
+                return _plain(*args, **kwargs)
+
+            setattr(module, name, guard)
+            self.saved.append((module, name, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, plain in self.saved:
+            setattr(module, name, plain)
+        return False
+
+
+def general_counters():
+    from supervillain_tpu_torch.ops.sweep import neighborhood_sweeps
+    from supervillain_tpu_torch.ops.worldline_worm import worldline_worms
+    from supervillain_tpu_torch.ops.worm import classic_worms
+    return {'sweep': neighborhood_sweeps, 'worm': classic_worms, 'worldline_worm': worldline_worms}
+
+
+def worldline_distribution(W):
+    """Exact distribution of u = m − δv/W on the 2×2 lattice (κ = WKAPPA),
+    keyed by the int8 bytes of W·u: every closed integer m with |m| ≤ 3 and
+    every v in {0..W−1} per plaquette (v → v + W·f only moves m by δf), which
+    is complete for max |u| ≤ 2.5; states beyond that pool into one bin."""
+    import torch
+    from supervillain_tpu_torch.ops import calculus
+    from supervillain_tpu_torch.ops.sweep import lattice
+    forms, _ = enumerate_closed_forms(2, cutoff=3)
+    weight_of = {}
+    for v in np.ndindex(*(W,) * 4):
+        dv = calculus.delta(lattice(2), 2, torch.tensor(v).reshape(1, 1, 2, 2))[0].numpy()
+        keys = (W * forms.astype(np.int16) - dv).astype(np.int8)
+        weights = np.exp(-((keys / W) ** 2).sum(axis=(1, 2, 3)) / (2 * WKAPPA))
+        weight_of.update(zip((k.tobytes() for k in keys), weights))
+    inside = {k: w for k, w in weight_of.items()
+              if np.abs(np.frombuffer(k, dtype=np.int8)).max() <= 2.5 * W}
+    Z = sum(weight_of.values())
+    prob_of = {k: w / Z for k, w in inside.items()}
+    prob_of[b'overflow'] = 1 - sum(prob_of.values())
+    return prob_of
+
+
+def chi2_of_worldline(samples, W):
+    """χ²/dof of sampled W·u (draws, 2, 2, 2) against :func:`worldline_distribution`."""
+    prob_of = worldline_distribution(W)
+    counts = {}
+    for x in np.rint(samples).astype(np.int8):
+        k = x.tobytes() if np.abs(x).max() <= 2.5 * W else b'overflow'
+        require(k in prob_of, 'sampled a state with δu != 0')
+        counts[k] = counts.get(k, 0) + 1
+    chi2, dof = chi2_against(prob_of, counts, len(samples))
+    require(dof >= 5, f'too few populated bins ({dof})')
+    return chi2 / dof
+
+
+def chi2_of_exact_forms(samples):
+    """χ²/dof of sampled n (draws, 2, 2, 2) against the Boltzmann distribution
+    of the exact forms n = dz (φ frozen at 0, |z| ≤ 3, z at the origin 0)."""
+    forms = {}
+    for zrow in np.ndindex(*(7,) * 3):
+        z = np.concatenate([[0], np.asarray(zrow) - 3]).reshape(2, 2)
+        n = np.stack([np.roll(z, -1, axis=mu) - z for mu in range(2)])
+        forms.setdefault(n.astype(np.int8).tobytes(),
+                         np.exp(-(VKAPPA / 2) * ((2 * np.pi * n) ** 2).sum()))
+    Z = sum(forms.values())
+    prob_of = {k: w / Z for k, w in forms.items()}
+    counts = {}
+    for x in samples.astype(np.int8):
+        require(x.tobytes() in prob_of, 'sampled n is not an exact form (dz)')
+        counts[x.tobytes()] = counts.get(x.tobytes(), 0) + 1
+    chi2, dof = chi2_against(prob_of, counts, len(samples))
+    require(dof >= 5, f'too few populated bins ({dof})')
+    return chi2 / dof
+
+
+def phase_general_exact(torch):
+    """G1: sample_fleet on the card against the exact N=2 distributions, the
+    cases of tests/test_exact_distribution.py."""
+    import supervillain_tpu_torch as sv
+    from supervillain_tpu_torch.generators import villain as gv, worldline as gw
+    from supervillain_tpu_torch.ops import calculus
+    from supervillain_tpu_torch.ops.sweep import lattice
+
+    say('== phase G1: the general generators against the exact N=2 distributions '
+        '(sample_fleet on the card; plain twins refused on CUDA tensors)')
+    cut = 20
+    counters = general_counters()
+    for f in counters.values():
+        f.launches = 0
+
+    def worldline_u(fleet, W):
+        m = torch.as_tensor(fleet.columns['m'][cut:].reshape(-1, 2, 2, 2)).long()
+        v = torch.as_tensor(fleet.columns['v'][cut:].reshape(-1, 1, 2, 2)).long()
+        return (W * m - calculus.delta(lattice(2), 2, v)).numpy()
+
+    def villain_n(fleet):
+        return fleet.columns['n'][cut:].reshape(-1, 2, 2, 2)
+
+    SW1 = sv.Worldline(sv.Lattice2D(2), WKAPPA, W=1)
+    SW2 = sv.Worldline(sv.Lattice2D(2), WKAPPA, W=2)
+    SV1 = sv.Villain(sv.Lattice2D(2), VKAPPA, W=1)
+    SV2 = sv.Villain(sv.Lattice2D(2), VKAPPA, W=2)
+    SVI = sv.Villain(sv.Lattice2D(2), VKAPPA, W=float('inf'))
+    worldline = dict(chains=48, steps=120, thin=4)
+    villain = dict(chains=64, steps=100)
+    cases = (
+        ('Worldline Hammer, W=1', SW1, gw.Hammer(SW1), dict(worldline, seed=7),
+         lambda f: chi2_of_closed_forms(worldline_u(f, 1))),
+        ('Worldline Hammer, W=2, worm capped at 6', SW2, gw.Hammer(SW2, max_worm_moves=6),
+         dict(worldline, seed=17), lambda f: chi2_of_worldline(worldline_u(f, 2), 2)),
+        ('Villain ClassicWorm, W=1', SV1, gv.ClassicWorm(SV1), dict(villain, thin=4, seed=11),
+         lambda f: chi2_of_samples(villain_n(f), 1)),
+        ('Villain ChunkedWorm(12), W=1', SV1, gv.ChunkedWorm(SV1, moves_per_step=12),
+         dict(villain, thin=4, seed=11), lambda f: chi2_of_samples(villain_n(f), 1)),
+        ('Villain ClassicWorm, W=2', SV2, gv.ClassicWorm(SV2), dict(villain, thin=4, seed=13),
+         lambda f: chi2_of_samples(villain_n(f), 2)),
+        ('Villain ClassicWorm, W=2, capped at 8', SV2, gv.ClassicWorm(SV2, max_moves=8),
+         dict(villain, thin=16, seed=13), lambda f: chi2_of_samples(villain_n(f), 2)),
+        ('ExactNeighborhoodUpdate(interval_phi=0), W=∞', SVI,
+         gv.ExactNeighborhoodUpdate(SVI, interval_phi=0.0), dict(villain, thin=4, seed=23),
+         lambda f: chi2_of_exact_forms(villain_n(f))),
+    )
+    with PlainTwinsRefused():
+        for label, S, G, args, chi2 in cases:
+            seconds, fleet = timed_s(torch, lambda: sv.sample_fleet(S, G, bound_worms='off',
+                                                                    **args))
+            ratio = chi2(fleet)
+            say(f'  {label}: χ²/dof = {ratio:.3f} over {(args["steps"] - cut) * args["chains"]} '
+                f'draws (bound {CHI2_BOUND}); {seconds:.2f} s')
+            require(ratio < CHI2_BOUND, f'G1: {label} misses the exact distribution')
+    launches = {k: f.launches for k, f in counters.items()}
+    say(f'  kernel launches in G1: {launches}')
+    require(all(v > 0 for v in launches.values()), f'G1: a kernel never launched: {launches}')
+    return launches
+
+
+def kept_fields(sv, fleet, cut):
+    """The fleet's kept fields after ``cut`` records as one pooled ensemble, so
+    that ActionDensity is the registry observable measured on them: a fused
+    fleet's pooled ensemble would return its inline column of that name (for
+    the Worldline action 1 minus the registry's, ROADMAP C4)."""
+    S = fleet.Action
+    return sv.Ensemble(S).from_configurations(sv.Configurations(
+        {k: fleet.columns[k][cut:].reshape((-1,) + fleet.columns[k].shape[2:])
+         for k in S.fields}))
+
+
+def record_profile(torch, card, label, G, fleet, thin):
+    """One record (``thin`` generator steps from the fleet's final state and
+    the host copy of its inline observables), profiled: device time by kind
+    against the wall time."""
+    rng = torch.Generator(device='cuda').manual_seed(99)
+    cfg = {k: torch.as_tensor(v, device='cuda') for k, v in fleet.final.items()}
+    stats = G.init_stats()
+
+    def record():
+        c, st = cfg, stats
+        for _ in range(thin):
+            c, st, inline = G.step(rng, c, st)
+        return {k: v.cpu().numpy() for k, v in inline.items()}
+
+    record()
+    torch.cuda.synchronize()
+    kinds, wall_ms = profiled(torch, record, 1)
+    say_breakdown(card, f'{label}: one record ({thin} Hammer steps and the host copy of its '
+                  f'inline observables, torch.profiler)', kinds, wall_ms, 'the host clock')
+
+
+def chunked_worm_ms(torch, S, chains, moves):
+    """Milliseconds of one ChunkedWorm step over ``chains`` chains (CUDA events,
+    mean of 5 after a warm-up), from a cold start."""
+    import supervillain_tpu_torch as sv
+    from supervillain_tpu_torch.generators import villain as gv
+    G = gv.ChunkedWorm(S, moves_per_step=moves)
+    cfg = G.prepare({k: v.expand((chains,) + v.shape).contiguous()
+                     for k, v in S.initial('cuda').items()})
+    rng = torch.Generator(device='cuda').manual_seed(5)
+    ms, _ = time_ms(torch, lambda: G.step(rng, cfg, G.init_stats()), 5)
+    return ms
+
+
+def phase_general_full_width(torch, card):
+    """G2: sample_fleet(S, Hammer(S, fleet=True)) at full width: agreement
+    with sample_fused_fleet at L=64, then width and timing at L=256."""
+    import supervillain_tpu_torch as sv
+    from supervillain_tpu_torch.generators import villain as gv, worldline as gw
+
+    counters = general_counters()
+    N, B, thin, kappa = 64, 1024, 4, 0.5
+    # From a cold start at L=64 the ActionDensity of the general Villain Hammer
+    # settles to within 1e-4 after about 1000 steps at W=2 and 400 at W=1, and
+    # that of the fused Villain sweep (zero-inflated, p_n = 0.1) after about
+    # 2500 sweeps; with p_n unset the sweep is far from equilibrium after 200
+    # (H100 runs of this phase, PERF.md §6).  The Worldline fleets settle
+    # within 100.
+    fused_thin = 50
+    say(f'== phase G2a: the general Hammer fleets against the fused fleets (L={N}, {B} chains, '
+        f'κ={kappa}, thin={thin}; the fused reference thin={fused_thin}, p_n=0.1 for the '
+        f'Villain sweep); ActionDensity is the registry '
+        f'observable measured on the kept fields of both fleets (for the Worldline action '
+        f'(|ℓ|/2 − (1/2κ)Σ(m − δv/W)²)/Λ, 1 minus the fused kernels\' inline column, which '
+        f'is not used)')
+    general = {k: 0 for k in counters}
+    with PlainTwinsRefused():
+        for label, S, module, kernel, steps, cut, fused_steps, fused_cut in (
+                ('Villain W=2 (ClassicWorm on B2, capped at 8·sites)',
+                 sv.Villain(sv.Lattice2D(N), kappa, W=2), gv, 'worm', 300, 250, 100, 50),
+                ('Villain W=1 (ChunkedWorm, 64 micro-moves a step)',
+                 sv.Villain(sv.Lattice2D(N), kappa, W=1), gv, None, 150, 100, 100, 50),
+                ('Worldline W=2 (ClassicWorm on B5, capped at 8·sites)',
+                 sv.Worldline(sv.Lattice2D(N), kappa, W=2), gw, 'worldline_worm', 50, 25,
+                 50, 25)):
+            G = module.Hammer(S, fleet=True)
+            for f in counters.values():
+                f.launches = 0
+            seconds, fleet = timed_s(torch, lambda: sv.sample_fleet(S, G, chains=B, steps=steps,
+                                                                    thin=thin, seed=31))
+            launches = {k: f.launches for k, f in counters.items()}
+            fused = sv.sample_fused_fleet(S, chains=B, steps=fused_steps, thin=fused_thin,
+                                          worms=1, keep_fields=True, seed=32,
+                                          p_n=None if isinstance(S, sv.Worldline) else 0.1)
+            means, estimates = [], []
+            for f, records, skip in ((fleet, steps, cut), (fused, fused_steps, fused_cut)):
+                e = kept_fields(sv, f, skip)
+                means.append(per_chain_means(e.ActionDensity, records - skip, B))
+                estimates.append(sv.Bootstrap(e, draws=100, seed=0).estimate('ActionDensity'))
+            m = [float(x.mean()) for x in means]
+            se = [float(x.std(ddof=1)) / math.sqrt(B) for x in means]
+            z = pull(m[0], se[0], m[1], se[1])
+            worm = fleet.stats['ClassicWorm']
+            say(f'  {label}, {steps} records, cut {cut} (fused {fused_steps}, cut {fused_cut}): '
+                f'general {m[0]!r} ± {se[0]!r}, fused '
+                f'{m[1]!r} ± {se[1]!r} (per-chain means), pull {z:.3f} (bound {PULL_BOUND}); '
+                f'pooled Bootstrap general '
+                f'{sv.Uncertain(*estimates[0])}, fused {sv.Uncertain(*estimates[1])}')
+            say(f'  [{card}] {label}: {seconds / steps!r} s per record, '
+                f'{B * N * N * thin / (seconds / steps)!r} site-updates/s (chains·L²·thin over the '
+                f'seconds of a record), launches {launches}; worms {worm["sweeps"]!r}, mean length '
+                f'{worm["accepted"] / max(worm["sweeps"], 1.0)!r}')
+            require(z < PULL_BOUND, f'G2: {label} disagrees with the fused fleet ({z:.2f} σ)')
+            require(kernel is None or launches[kernel] == steps * thin,
+                    f'G2: the worm kernel did not launch once a step for {label}: {launches}')
+            if kernel is None:
+                say(f'  [{card}] ChunkedWorm(64) step over {B} chains at L={N}: '
+                    f'{chunked_worm_ms(torch, S, B, 64)!r} ms (CUDA events, mean of 5)')
+            del fleet, fused
+
+        N, B, steps = 256, 512, 10
+        say(f'== phase G2b: width and timing of the general Hammer fleets (L={N}, {B} chains, '
+            f'κ={kappa}, W=2, thin={thin}, {steps} records, keep_fields=False; not thermalized, '
+            f'no agreement held)')
+        for label, S, module in (('Villain', sv.Villain(sv.Lattice2D(N), kappa, W=2), gv),
+                                 ('Worldline', sv.Worldline(sv.Lattice2D(N), kappa, W=2), gw)):
+            G = module.Hammer(S, fleet=True)
+            for f in counters.values():
+                f.launches = 0
+            seconds, fleet = timed_s(torch, lambda: sv.sample_fleet(
+                S, G, chains=B, steps=steps, thin=thin, seed=41, keep_fields=False))
+            launches = {k: f.launches for k, f in counters.items()}
+            for k, v in launches.items():
+                general[k] += v
+            histogram = 'Vortex_Vortex' if label == 'Villain' else 'Spin_Spin'
+            for k in (histogram, 'Worm_Length'):
+                col = fleet.columns[k]
+                require(col.shape[:2] == (steps, B) and np.isfinite(col).all(),
+                        f'G2: bad column {k}')
+            worm = fleet.stats['ClassicWorm']
+            say(f'  [{card}] {label} Hammer(fleet=True): {seconds / steps!r} s per record, '
+                f'{B * N * N * thin / (seconds / steps)!r} site-updates/s; launches {launches}; '
+                f'{worm["sweeps"] - worm["acceptance"]!r} of {worm["sweeps"]!r} worms truncated at '
+                f'{8 * N * N} moves, mean length {worm["accepted"] / worm["sweeps"]!r}')
+            require(launches['worm' if label == 'Villain' else 'worldline_worm'] == steps * thin,
+                    f'G2: the {label} worm kernel did not launch once a step: {launches}')
+            record_profile(torch, card, f'{label} Hammer(fleet=True)', G, fleet, thin)
+            del fleet
+        say(f'  [{card}] ChunkedWorm(64) step over {B} chains at L={N} (W=1): '
+            f'{chunked_worm_ms(torch, sv.Villain(sv.Lattice2D(N), kappa, W=1), B, 64)!r} ms '
+            f'(CUDA events, mean of 5)')
+    return general
+
+
+def phase_general_host_path(torch):
+    """G3: Ensemble.generate with the generic Villain Hammer on the card, every
+    → continue_from, and the h5 round trip of its generator tree."""
+    import supervillain_tpu_torch as sv
+    from supervillain_tpu_torch.generators import villain as gv
+
+    say('== phase G3: Ensemble.generate with the generic Villain Hammer on the card (N=8, W=2), '
+        'every(2) → continue_from, h5 round trip')
+    S = sv.Villain(sv.Lattice2D(8), 0.5, W=2)
+    with PlainTwinsRefused():
+        e = sv.Ensemble(S).generate(20, gv.Hammer(S, fleet=True), seed=3)
+        strided = e.every(2)
+        require(isinstance(strided.generator, sv.KeepEvery), 'every() dropped the generator')
+        rest = sv.Ensemble.continue_from(strided, 5)
+    require(len(rest) == 5 and rest.index[0] == strided.index[-1] + 2,
+            f'continue_from of a strided ensemble: index {rest.index}')
+    require(all(S.valid({'n': torch.as_tensor(n)}) for n in rest.n), 'G3: dn ≢ 0 mod 2')
+    require(np.isfinite(sv.Bootstrap(rest, draws=50, seed=0).estimate('ActionDensity')).all(),
+            'G3: non-finite ActionDensity')
+    say(f'  generate(20) → every(2) → continue_from(5): index {rest.index.tolist()}, stats '
+        f'{sorted(rest.stats)}')
+    try:
+        import h5py
+    except ImportError:
+        say('  h5py does not import here: the h5 round trip is skipped (not a failure)')
+        return
+    import tempfile
+    with tempfile.TemporaryDirectory() as where:
+        with h5py.File(f'{where}/g3.h5', 'w') as f:
+            strided.to_h5(f.create_group('ensemble'))
+            read = sv.Ensemble.from_h5(f['ensemble'])
+    spec = sv.io.generator_spec(strided.generator)
+    require(sv.io.generator_spec(read.generator) == spec, 'G3: the generator spec did not rebuild')
+    say(f'  h5 round trip: the spec rebuilds ({spec["cls"]} of {spec["generator"]["cls"]})')
+
+
 def main():
     import torch
 
@@ -1356,6 +1719,9 @@ def main():
     phase_card_against_cpu(torch)
     phase_estimators(torch)
     phase_published_quantities(torch, card, villain_kept, worldline_kept)
+    exact = phase_general_exact(torch)
+    general = phase_general_full_width(torch, card)
+    phase_general_host_path(torch)
     launches |= w_launches
     ms |= w_ms
     plain_ms |= w_plain_ms
@@ -1374,7 +1740,11 @@ def main():
     }
     report = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': src, 'replaces': replaces,
-         'launches': launches[name], 'max_abs_err': err[name], 'ms': ms[name],
+         'launches': launches[name],
+         'launches_by_path': {'sample_fused_fleet (phases 6, W4)': launches[name],
+                              'sample_fleet, exact cases (G1)': exact.get(name, 0),
+                              'sample_fleet Hammer(fleet=True), L=256 (G2b)': general.get(name, 0)},
+         'max_abs_err': err[name], 'ms': ms[name],
          'plain_ms': plain_ms[name], 'bound_ms': bounds[name][0], 'bound_by': bounds[name][1],
          'library_ms': None}
         for name, (src, replaces) in sources.items()]}

@@ -17,6 +17,7 @@ import torch
 
 from .configurations import Configurations
 from .device import resolve_device, to_device
+from .generators.base import host_stats
 from .utils import Timer
 
 logger = logging.getLogger(__name__)
@@ -51,11 +52,12 @@ class Ensemble:
                  progress=_no_op, starting_index=0, index_stride=1):
         """Run the chain for ``steps`` configurations.
 
-        ``generator`` provides ``step(torch_generator, cfg, stats)``; ``seed`` is
-        an int that seeds a ``torch.Generator`` on ``device``, where the chain
-        runs, or such a generator itself.  ``start`` is ``'cold'`` or a
-        configuration dict (moved to ``device`` in its dtypes).  Without a card,
-        pass ``device='cpu'``."""
+        ``generator`` provides ``step(torch_generator, cfg, stats)`` over a
+        batch of chains; the chain runs as a batch of one.  ``seed`` is an int
+        that seeds a ``torch.Generator`` on ``device``, where the chain runs, or
+        such a generator itself.  ``start`` is ``'cold'`` or a configuration
+        dict (moved to ``device`` in its dtypes).  Without a card, pass
+        ``device='cpu'``."""
         S = self.Action
         device = resolve_device(device)
         if isinstance(seed, torch.Generator):
@@ -69,12 +71,13 @@ class Ensemble:
         else:
             raise ValueError(f'Not sure how to start from a {type(start)}.')
 
+        cfg = generator.prepare({k: v[None] for k, v in cfg.items()})
         stats = generator.init_stats()
         columns = None
         with Timer(logger.info, f'Generation of {steps} configurations', per=steps):
             for i in progress(range(steps), desc='Generation'):
                 cfg, stats, inline = generator.step(rng, cfg, stats)
-                host = {k: v.detach().cpu().numpy() for k, v in (cfg | inline).items()}
+                host = {k: v[0].detach().cpu().numpy() for k, v in (cfg | inline).items()}
                 if columns is None:
                     columns = {k: np.empty((steps,) + v.shape, dtype=v.dtype)
                                for k, v in host.items()}
@@ -88,12 +91,12 @@ class Ensemble:
         self.weight = np.ones(steps)
         self.start = start
         self.generator = generator
-        self.stats = stats
-        self._final = {k: cfg[k].detach().cpu().numpy() for k in S.fields}
+        self.stats = host_stats(stats)
+        self._final = {k: cfg[k][0].detach().cpu().numpy() for k in S.fields}
         # The stream goes on where this chain stopped: continue_from (and a
         # file written by to_h5) resumes it instead of reseeding.
         self._generator_state = (rng.device.type, rng.get_state().numpy())
-        for line in generator.report(stats).split('\n'):
+        for line in generator.report(self.stats).split('\n'):
             logger.info(line)
         return self
 
@@ -113,8 +116,7 @@ class Ensemble:
             from .io import ensemble_from_h5
             e = ensemble_from_h5(ensemble, device=device or 'cuda')
         if 'generator' not in e.__dict__:
-            raise ValueError('This ensemble carries no generator to continue with '
-                             '(every() drops it: its KeepEvery wrapper is not ported).')
+            raise ValueError('This ensemble carries no generator to continue with.')
         device = resolve_device(device or e.device)
         action = e.Action
         last = e.__dict__.get('_final') or e.configuration[len(e) - 1]
@@ -232,14 +234,16 @@ class Ensemble:
         return e
 
     def every(self, stride):
-        """Keep every ``stride``-th configuration (decorrelation).  The result
-        carries no generator: continuing it would need the JAX package's
-        ``KeepEvery``, which is not ported."""
+        """Keep every ``stride``-th configuration (decorrelation); the generator
+        is wrapped in ``KeepEvery`` so that continuation stays strided."""
+        from .generators import KeepEvery
         stride = int(stride)
         if stride < 1:
             raise ValueError(f'every() needs a stride >= 1, got {stride}.')
         e = self._derive(slice(None, None, stride), ('stats', '_final', '_generator_state'))
         e.index_stride = self.index_stride * stride
+        if 'generator' in self.__dict__:
+            e.generator = KeepEvery(stride, self.generator, blocked_inline=False)
         return e
 
     # -- persistence -----------------------------------------------------------

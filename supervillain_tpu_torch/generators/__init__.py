@@ -1,11 +1,15 @@
-from .base import Generator
-from .villain import NeighborhoodUpdate, ExactNeighborhoodUpdate, ClassicWorm
+from .base import Generator, DoNothing
+from .combining import Sequentially, KeepEvery
+from .monitor import Logger
+from .villain import (SiteUpdate, LinkUpdate, ExactUpdate, CohomologyUpdate, NeighborhoodUpdate,
+                      ExactNeighborhoodUpdate, ClassicWorm, ChunkedWorm)
 from .villain_fused import (FusedNeighborhoodUpdate, FusedExactNeighborhoodUpdate,
                             FusedHammer, FusedClassicWorm)
-from . import worldline
+from . import villain, worldline
 from .worldline_fused import FusedWorldlineUpdate, FusedWorldlineWorm, FusedWorldlineHammer
 
-__all__ = ['Generator', 'NeighborhoodUpdate', 'ExactNeighborhoodUpdate', 'ClassicWorm',
-           'FusedNeighborhoodUpdate', 'FusedExactNeighborhoodUpdate', 'FusedHammer',
-           'FusedClassicWorm', 'worldline', 'FusedWorldlineUpdate', 'FusedWorldlineWorm',
-           'FusedWorldlineHammer']
+__all__ = ['Generator', 'DoNothing', 'Sequentially', 'KeepEvery', 'Logger', 'SiteUpdate',
+           'LinkUpdate', 'ExactUpdate', 'CohomologyUpdate', 'NeighborhoodUpdate',
+           'ExactNeighborhoodUpdate', 'ClassicWorm', 'ChunkedWorm', 'FusedNeighborhoodUpdate',
+           'FusedExactNeighborhoodUpdate', 'FusedHammer', 'FusedClassicWorm', 'villain',
+           'worldline', 'FusedWorldlineUpdate', 'FusedWorldlineWorm', 'FusedWorldlineHammer']

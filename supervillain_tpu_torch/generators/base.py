@@ -6,14 +6,19 @@ owns static configuration and exposes
     step(generator, cfg, stats) -> (cfg, stats, inline)
 
 where ``generator`` is a ``torch.Generator`` on the device of the fields (the
-draws of the plain versions) or on the host (the seeds of the kernels), ``cfg``
-the field dict, ``stats`` a dict of acceptance tallies (one sub-dict of Python
-floats per generator tag) and ``inline`` a dict of per-step inline observables.
+draws of the plain PyTorch updates, and the seeds of the kernels), ``cfg`` the
+field dict of a batch of independent chains (every field has a leading chain
+axis: B chains in a fleet, one under :meth:`Ensemble.generate`), ``stats`` a
+dict of acceptance tallies summed over the chains (one sub-dict per generator
+tag; the values stay on the fields' device until :func:`host_stats` reads
+them) and ``inline`` a dict of per-step inline observables, one per chain.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..device import float_dtype_of
 
 
 def uniform_nonzero_int(generator, shape, interval, dtype=torch.int64, device='cpu'):
@@ -50,6 +55,19 @@ def empty_stats():
     return {'accepted': 0.0, 'proposed': 0.0, 'acceptance': 0.0, 'sweeps': 0.0}
 
 
+def host_stats(stats):
+    """The tallies as Python floats (one read of each device value)."""
+    return {tag: {k: float(v) for k, v in s.items()} for tag, s in stats.items()}
+
+
+def _total(value, chains):
+    """A per-chain tally summed over the batch: a (B,) tensor in float64 on its
+    device, or a number that every chain adds."""
+    if isinstance(value, torch.Tensor):
+        return value.sum(dtype=torch.float64)
+    return float(value) * chains
+
+
 class Generator:
     """Base class: stats bookkeeping."""
 
@@ -69,19 +87,26 @@ class Generator:
     def step(self, generator, cfg, stats):  # pragma: no cover - abstract
         raise NotImplementedError
 
-    def _tally(self, stats, accepted, proposed, acceptance, sweeps=1.0, tag=None):
+    def prepare(self, cfg):
+        """Add any generator-carried state to a starting batch of chains
+        (:class:`~.villain.ChunkedWorm` carries its open worm).  Default: none."""
+        return cfg
+
+    def _tally(self, stats, chains, accepted, proposed, acceptance, sweeps=1.0, tag=None):
+        """Add one step of ``chains`` chains to ``stats[tag]``: each value is
+        per chain, a (B,) tensor or a number every chain shares."""
         tag = tag or self.name
         s = stats[tag]
         return stats | {tag: {
-            'accepted': s['accepted'] + float(accepted),
-            'proposed': s['proposed'] + float(proposed),
-            'acceptance': s['acceptance'] + float(acceptance),
-            'sweeps': s['sweeps'] + float(sweeps),
+            'accepted': s['accepted'] + _total(accepted, chains),
+            'proposed': s['proposed'] + _total(proposed, chains),
+            'acceptance': s['acceptance'] + _total(acceptance, chains),
+            'sweeps': s['sweeps'] + _total(sweeps, chains),
         }}
 
     def report(self, stats):
         lines = []
-        for tag, s in stats.items():
+        for tag, s in host_stats(stats).items():
             sweeps = max(s['sweeps'], 1.0)
             if s['proposed'] > 0:
                 lines.append(
@@ -91,3 +116,18 @@ class Generator:
             else:
                 lines.append(f'{tag}: no proposals recorded.')
         return '\n'.join(lines)
+
+
+class DoNothing(Generator):
+    """Identity update with a constant inline observable ``one``."""
+
+    name = 'DoNothing'
+
+    def inline_shapes(self):
+        return {'one': ()}
+
+    def step(self, generator, cfg, stats):
+        field = next(iter(cfg.values()))
+        chains = field.shape[0]
+        one = torch.ones(chains, dtype=float_dtype_of(field), device=field.device)
+        return cfg, self._tally(stats, chains, 0.0, 0.0, 0.0), {'one': one}

@@ -44,14 +44,13 @@ class FusedNeighborhoodUpdate(Generator):
     def step(self, generator, cfg, stats):
         S, L = self.Action, self.Lattice
         phi, n, accepted, inline = neighborhood_sweeps(
-            cfg['phi'][None], cfg['n'][None], kappa=S.kappa, W=self._kernel_W,
+            cfg['phi'], cfg['n'], kappa=S.kappa, W=self._kernel_W,
             interval_phi=self.interval_phi, interval_n=self.interval_n,
             sweeps=self.sweeps_per_step, p_n=self.p_n, generator=generator)
         su = L.sites * self.sweeps_per_step
-        accepted = float(accepted[0])
-        stats = self._tally(stats, accepted, su, accepted / su, sweeps=self.sweeps_per_step)
-        return (cfg | {'phi': phi[0], 'n': n[0]}, stats,
-                {k: v[0] for k, v in inline.items()})
+        stats = self._tally(stats, phi.shape[0], accepted, su, accepted / su,
+                            sweeps=self.sweeps_per_step)
+        return cfg | {'phi': phi, 'n': n}, stats, inline
 
 
 class FusedExactNeighborhoodUpdate(FusedNeighborhoodUpdate):
@@ -110,18 +109,16 @@ class FusedHammer(Generator):
     def step(self, generator, cfg, stats):
         S, L = self.Action, self.Lattice
         phi, n, accepted, inline = hammer_sweeps(
-            cfg['phi'][None], cfg['n'][None], kappa=S.kappa, W=S.W,
+            cfg['phi'], cfg['n'], kappa=S.kappa, W=S.W,
             interval_phi=self.interval_phi, interval_n=self.interval_n,
             sweeps=self.sweeps_per_step, worms=self.worms, p_n=self.p_n,
             max_worm_moves=self.max_worm_moves, generator=generator)
-        accepted = float(accepted[0])
-        wl = float(inline['Worm_Length'][0])
+        B, wl = phi.shape[0], inline['Worm_Length']
         su = L.sites * self.sweeps_per_step
-        stats = self._tally(stats, accepted, su, accepted / su, self.sweeps_per_step,
+        stats = self._tally(stats, B, accepted, su, accepted / su, self.sweeps_per_step,
                             tag=self._sweep_tag)
-        stats = self._tally(stats, wl, wl, 1.0, self.worms, tag='ClassicWorm')
-        return (cfg | {'phi': phi[0], 'n': n[0]}, stats,
-                {k: v[0] for k, v in inline.items()})
+        stats = self._tally(stats, B, wl, wl, 1.0, self.worms, tag='ClassicWorm')
+        return cfg | {'phi': phi, 'n': n}, stats, inline
 
 
 class FusedClassicWorm(Generator):
@@ -143,8 +140,7 @@ class FusedClassicWorm(Generator):
     def step(self, generator, cfg, stats):
         S = self.Action
         n, hist, length, _ = classic_worms(
-            cfg['phi'][None], cfg['n'][None], kappa=S.kappa, W=S.W, worms=self.worms,
+            cfg['phi'], cfg['n'], kappa=S.kappa, W=S.W, worms=self.worms,
             max_worm_moves=self.max_worm_moves, generator=generator)
-        wl = float(length[0])
-        stats = self._tally(stats, wl, wl, 1.0, sweeps=self.worms)
-        return cfg | {'n': n[0]}, stats, {'Vortex_Vortex': hist[0], 'Worm_Length': length[0]}
+        stats = self._tally(stats, n.shape[0], length, length, 1.0, sweeps=self.worms)
+        return cfg | {'n': n}, stats, {'Vortex_Vortex': hist, 'Worm_Length': length}

@@ -1,20 +1,30 @@
-"""Monte-Carlo updates for the Worldline action (D=2), over the plain versions.
+"""Monte-Carlo updates for the Worldline action (D=2), on a batch of chains.
 
-PyTorch counterparts of ``VortexUpdate``, ``CoexactUpdate``, ``WrappingUpdate``
-and ``ClassicWorm`` of :mod:`supervillain_tpu.generators.worldline`.  Each step
-runs the passes of :mod:`..ops.worldline` or the worm of
-:mod:`..ops.worldline_worm` on one chain, on whatever device its fields are,
-with draws from the step's ``torch.Generator``; the algebra lives only there.
+PyTorch counterparts of the updates of :mod:`supervillain_tpu.generators.worldline`
+and of its ``Hammer``.  Every step takes fields with a leading chain axis.
+``VortexUpdate``, ``CoexactUpdate`` and ``WrappingUpdate`` run the passes of
+:mod:`..ops.worldline` and ``PlaquetteUpdate`` its own, as PyTorch operations
+on either device with draws from the step's ``torch.Generator`` (the JAX
+package runs them outside Pallas; the kernel B4 fuses the first three, so none
+is a kernel's function alone).  ``ClassicWorm`` runs one worm per chain through
+:func:`..ops.worldline_worm.worldline_worms`: the CUDA kernel B5 on the card,
+its plain twin on the CPU.
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..models import Worldline
-from ..ops.worldline import (WorldlineSweepDraws, coexact_pass, residual, vortex_pass,
-                             wrapping_pass)
-from ..ops.worldline_worm import WorldlineWormDraws, plain_worldline_worms
+from ..ops import calculus as calc
+from ..ops.sweep import lattice
+from ..ops.worldline import (WorldlineSweepDraws, coexact_pass, inverse_w, residual,
+                             vortex_pass, wrapping_pass)
+from ..ops.worldline_worm import worldline_worms
 from ..device import float_dtype_of
-from .base import Generator
+from .base import Generator, metropolis
+from .combining import KeepEvery, Sequentially
+from .villain import _WormReport
 
 
 def require_worldline_2d(action):
@@ -25,8 +35,8 @@ def require_worldline_2d(action):
 
 
 class _LocalUpdate(Generator):
-    """A checkerboarded local update of one chain: ``_passes`` runs its passes
-    on the batch of one and returns the fields and the accepted count."""
+    """A checkerboarded local update of a batch of chains: ``_passes`` runs its
+    passes and returns the fields and the accepted count per chain."""
 
     fields = ('m', 'v')
 
@@ -43,17 +53,17 @@ class _LocalUpdate(Generator):
         return self.Lattice.sites
 
     def step(self, generator, cfg, stats):
-        m, v = cfg['m'][None], cfg['v'][None]
+        m, v = cfg['m'], cfg['v']
         draws = WorldlineSweepDraws(
-            generator, B=1, N=self.Lattice.N, interval_v=self.interval_v,
+            generator, B=m.shape[0], N=self.Lattice.N, interval_v=self.interval_v,
             interval_t=self.interval_t, interval_w=self.interval_w,
             winf=self.Action.W == float('inf'), fdt=float_dtype_of(v), idt=m.dtype,
             device=m.device)
         m, v, accepted = self._passes(m, v, residual(m, v, self.Action.W), draws)
-        accepted = float(accepted[0])
         proposals = self._proposals()
-        stats = self._tally(stats, accepted, proposals, accepted / proposals)
-        return cfg | {'m': m[0], 'v': v[0]}, stats, {}
+        accepted = accepted.to(draws.fdt)
+        stats = self._tally(stats, m.shape[0], accepted, proposals, accepted / proposals)
+        return cfg | {'m': m, 'v': v}, stats, {}
 
 
 class VortexUpdate(_LocalUpdate):
@@ -111,10 +121,64 @@ class WrappingUpdate(_LocalUpdate):
         return m, v, accepted
 
 
-class ClassicWorm(Generator):
-    r"""Prokof'ev–Svistunov worm on the sites: tallies the inline ``Spin_Spin``
-    histogram and ``Worm_Length``.  ``max_moves`` caps a worm; an unclosed worm
-    breaks δm = 0 and is rolled back at every W.  Never changes v."""
+def plaquette_delta_s(kappa, L, f, t, change_v, W):
+    """ΔS at each plaquette of a PlaquetteUpdate proposal on one color: the
+    boundary change δt and Δv (each (B, 1, N, N)) change the links' residual
+    f = m − δv/_W by δt − δΔv/_W."""
+    change_f = calc.delta(L, 2, t).to(f.dtype) - calc.delta(L, 2, change_v).to(f.dtype) * inverse_w(W)
+    return calc.coface_sum(L, 1, (0.5 / kappa) * change_f * (2 * f + change_f))[:, 0]
+
+
+class PlaquetteUpdate(Generator):
+    r"""Coordinated ±1 on the 4 boundary links of each plaquette (Δm = δt) together
+    with ``Δv ∈ {-1, 0, +1}`` on the plaquette itself, so δm stays 0.  Swept per
+    checkerboard color: same-color plaquettes share no links.  Not ergodic alone
+    (cannot change the wrapping)."""
+
+    name = 'PlaquetteUpdate'
+    fields = ('m', 'v')
+
+    def __init__(self, action):
+        require_worldline_2d(action)
+        self.Action = action
+        self.Lattice = action.Lattice
+
+    def step(self, generator, cfg, stats):
+        S = self.Action
+        m, v = cfg['m'], cfg['v']
+        B, N = m.shape[0], m.shape[-1]
+        L = lattice(N)
+        f = residual(m, v, S.W)
+        accepted = acceptance = 0
+        for color in range(L.n_colors):
+            mask = L.mask(color, m.device)
+            cm = 2 * torch.randint(0, 2, (B, N, N), generator=generator, device=m.device,
+                                   dtype=m.dtype) - 1
+            cv = torch.randint(-1, 2, (B, N, N), generator=generator, device=m.device).to(v.dtype)
+            t = torch.where(mask, cm, 0)[:, None]
+            change_v = torch.where(mask, cv, 0)[:, None]
+            dS = plaquette_delta_s(S.kappa, L, f, t, change_v, S.W)
+            accept, prob = metropolis(torch.rand((B, N, N), generator=generator, dtype=f.dtype,
+                                                 device=m.device), dS)
+            accept = accept & mask
+            applied_t = torch.where(accept, t[:, 0], 0)[:, None]
+            applied_v = torch.where(accept, change_v[:, 0], 0)[:, None]
+            dm = calc.delta(L, 2, applied_t)
+            m = m + dm
+            v = v + applied_v
+            f = f + dm.to(f.dtype) - calc.delta(L, 2, applied_v).to(f.dtype) * inverse_w(S.W)
+            accepted = accepted + accept.sum(dim=(-2, -1))
+            acceptance = acceptance + torch.where(mask, prob, 0).sum(dim=(-2, -1))
+        stats = self._tally(stats, B, accepted, L.sites, acceptance / L.sites)
+        return cfg | {'m': m, 'v': v}, stats, {}
+
+
+class ClassicWorm(_WormReport, Generator):
+    r"""Prokof'ev–Svistunov worm on the sites, one per chain and step:
+    :func:`..ops.worldline_worm.worldline_worms` (B5 on the card).  Tallies the
+    inline ``Spin_Spin`` histogram and ``Worm_Length``.  ``max_moves`` caps a
+    worm; an unclosed worm breaks δm = 0 and is rolled back at every W.  Never
+    changes v."""
 
     name = 'ClassicWorm'
     fields = ('m', 'v')
@@ -129,21 +193,26 @@ class ClassicWorm(Generator):
         return {'Spin_Spin': self.Lattice.dims, 'Worm_Length': ()}
 
     def step(self, generator, cfg, stats):
-        m, v = cfg['m'][None], cfg['v'][None]
-        draws = WorldlineWormDraws(generator, B=1, N=self.Lattice.N, fdt=float_dtype_of(v),
-                                   device=m.device)
-        m, hist, length, truncated = plain_worldline_worms(
-            m, v, kappa=self.Action.kappa, W=self.Action.W, worms=1,
-            max_worm_moves=self.max_moves, draws=draws)
-        wl = float(length[0])
-        stats = self._tally(stats, wl, wl, 1.0 - float(truncated[0]))
-        return cfg | {'m': m[0]}, stats, {'Spin_Spin': hist[0], 'Worm_Length': length[0]}
+        m = cfg['m']
+        m, hist, length, truncated = worldline_worms(
+            m, cfg['v'], kappa=self.Action.kappa, W=self.Action.W, worms=1,
+            max_worm_moves=self.max_moves, generator=generator)
+        stats = self._tally(stats, m.shape[0], length, length, 1 - truncated)
+        # Float32 tallies, as the JAX package keeps them (exact below 2**24).
+        return cfg | {'m': m}, stats, {'Spin_Spin': hist.float(), 'Worm_Length': length.float()}
 
-    def report(self, stats):
-        s = stats[self.name]
-        worms = max(s['sweeps'], 1.0)
-        line = f'{self.name}: {worms:.0f} worms, mean length {s["accepted"] / worms:.3f}'
-        truncated = worms - s['acceptance']
-        if self.max_moves is not None and truncated > 0.5:
-            line += f' ({truncated:.0f} truncated at max_moves={self.max_moves})'
-        return line
+
+def Hammer(S, worms=1, fleet=False, max_worm_moves=None):
+    """Ergodic composite for the Worldline action:
+    Sequentially(Vortex, Coexact, Wrapping, Worm).
+
+    ``fleet``: bound the worm's step time over many chains
+    (``max_moves=max_worm_moves``, default 8·sites); ``max_worm_moves`` also
+    caps the worm without ``fleet``."""
+    require_worldline_2d(S)
+    cap = max_worm_moves
+    if fleet and cap is None:
+        cap = 8 * S.Lattice.sites
+    worm = ClassicWorm(S, max_moves=cap)
+    return Sequentially((VortexUpdate(S), CoexactUpdate(S), WrappingUpdate(S),
+                         KeepEvery(worms, worm) if worms > 1 else worm))

@@ -44,12 +44,11 @@ class FusedWorldlineUpdate(Generator):
                     sweeps=self.sweeps_per_step)
 
     def step(self, generator, cfg, stats):
-        m, v, accepted, _ = worldline_sweeps(cfg['m'][None], cfg['v'][None],
-                                             generator=generator, **self._sweep_args())
-        accepted = float(accepted[0])
-        stats = self._tally(stats, accepted, self._proposals(), accepted / self._proposals(),
-                            sweeps=self.sweeps_per_step)
-        return cfg | {'m': m[0], 'v': v[0]}, stats, {}
+        m, v, accepted, _ = worldline_sweeps(cfg['m'], cfg['v'], generator=generator,
+                                             **self._sweep_args())
+        stats = self._tally(stats, m.shape[0], accepted, self._proposals(),
+                            accepted / self._proposals(), sweeps=self.sweeps_per_step)
+        return cfg | {'m': m, 'v': v}, stats, {}
 
 
 class FusedWorldlineWorm(Generator):
@@ -71,11 +70,10 @@ class FusedWorldlineWorm(Generator):
     def step(self, generator, cfg, stats):
         S = self.Action
         m, hist, length, _ = worldline_worms(
-            cfg['m'][None], cfg['v'][None], kappa=S.kappa, W=S.W, worms=self.worms,
+            cfg['m'], cfg['v'], kappa=S.kappa, W=S.W, worms=self.worms,
             max_worm_moves=self.max_worm_moves, generator=generator)
-        wl = float(length[0])
-        stats = self._tally(stats, wl, wl, 1.0, sweeps=self.worms)
-        return cfg | {'m': m[0]}, stats, {'Spin_Spin': hist[0], 'Worm_Length': length[0]}
+        stats = self._tally(stats, m.shape[0], length, length, 1.0, sweeps=self.worms)
+        return cfg | {'m': m}, stats, {'Spin_Spin': hist, 'Worm_Length': length}
 
 
 class FusedWorldlineHammer(FusedWorldlineUpdate):
@@ -102,12 +100,11 @@ class FusedWorldlineHammer(FusedWorldlineUpdate):
 
     def step(self, generator, cfg, stats):
         m, v, accepted, inline = worldline_hammer_sweeps(
-            cfg['m'][None], cfg['v'][None], worms=self.worms,
+            cfg['m'], cfg['v'], worms=self.worms,
             max_worm_moves=self.max_worm_moves, generator=generator, **self._sweep_args())
-        accepted = float(accepted[0])
-        wl = float(inline['Worm_Length'][0])
+        B, wl = m.shape[0], inline['Worm_Length']
         proposals = self._proposals()
-        stats = self._tally(stats, accepted, proposals, accepted / proposals,
+        stats = self._tally(stats, B, accepted, proposals, accepted / proposals,
                             self.sweeps_per_step, tag='WorldlineLocalUpdates')
-        stats = self._tally(stats, wl, wl, 1.0, self.worms, tag='ClassicWorm')
-        return (cfg | {'m': m[0], 'v': v[0]}, stats, {k: x[0] for k, x in inline.items()})
+        stats = self._tally(stats, B, wl, wl, 1.0, self.worms, tag='ClassicWorm')
+        return cfg | {'m': m, 'v': v}, stats, inline

@@ -95,7 +95,18 @@ _SPEC_ARGS = {
 
 
 def generator_spec(g):
-    """JSON-serializable description of a generator."""
+    """JSON-serializable description of a generator tree."""
+    from ..generators import KeepEvery, Logger, Sequentially
+    if isinstance(g, Sequentially):
+        # The de-duplicated stats tags, so that stats kept under suffixed tags
+        # (two same-named sub-generators) reconcile on reload.
+        return {'cls': 'Sequentially', 'generators': [generator_spec(x) for x in g.generators],
+                'tags': list(g._tags)}
+    if isinstance(g, KeepEvery):
+        return {'cls': 'KeepEvery', 'n': g.n, 'blocked_inline': g.blocked_inline,
+                'generator': generator_spec(g.generator)}
+    if isinstance(g, Logger):
+        return generator_spec(g.generator)
     cls = type(g).__name__
     family = type(g).__module__.rsplit('.', 1)[-1]
     args = {k: getattr(g, k) for k in _SPEC_ARGS.get(cls, ())}
@@ -103,18 +114,28 @@ def generator_spec(g):
 
 
 def generator_from_spec(spec, action):
-    """Reconstruct a generator against ``action``.  A spec naming a generator
-    the port does not have (a combinator such as ``Sequentially``, or one of
-    the JAX package's other updates) raises ``NotImplementedError``."""
-    from ..generators import villain, villain_fused, worldline, worldline_fused
-    from ..generators import base
+    """Reconstruct a generator tree against ``action``.  A spec naming a
+    generator the port does not have raises ``NotImplementedError``."""
+    from ..generators import KeepEvery, Sequentially
+    from ..generators import base, villain, villain_fused, worldline, worldline_fused
     cls = spec['cls']
+    if cls == 'Sequentially':
+        seq = Sequentially([generator_from_spec(s, action) for s in spec['generators']])
+        if 'tags' in spec and list(spec['tags']) != seq._tags:
+            seq._tags = list(spec['tags'])
+            seq.name = 'Sequentially(' + ', '.join(seq._tags) + ')'
+        return seq
+    if cls == 'KeepEvery':
+        return KeepEvery(spec['n'], generator_from_spec(spec['generator'], action),
+                         blocked_inline=spec['blocked_inline'])
     families = {'base': base, 'villain': villain, 'worldline': worldline,
                 'villain_fused': villain_fused, 'worldline_fused': worldline_fused}
     klass = getattr(families.get(spec.get('family')), cls, None)
-    if klass is None:
+    if not (isinstance(klass, type) and issubclass(klass, base.Generator)):
         raise NotImplementedError(f'The port has no generator {cls!r} '
                                   f'(family {spec.get("family")!r}) to rebuild.')
+    if klass is base.DoNothing:
+        return klass()
     return klass(action, **spec['args'])
 
 

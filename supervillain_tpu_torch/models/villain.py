@@ -72,6 +72,27 @@ class Villain:
         return {'phi': torch.zeros(L.form_shape(0), dtype=fdt, device=device),
                 'n': torch.zeros(L.form_shape(1), dtype=idt, device=device)}
 
+    def field_degrees(self):
+        return {'phi': 0, 'n': 1}
+
+    def configurations(self, count):
+        """Host-side zeroed storage for ``count`` configurations."""
+        from ..configurations import Configurations
+        L = self.Lattice
+        return Configurations({'phi': np.zeros((count,) + L.form_shape(0)),
+                               'n': np.zeros((count,) + L.form_shape(1), dtype=int)})
+
+    def gauge_transform(self, configuration, k):
+        r"""φ → φ + 2πk, n → n + dk for an integer 0-form k; the combination
+        ``dφ - 2πn`` is invariant."""
+        k = torch.as_tensor(k)
+        if k.is_floating_point() or k.is_complex() or k.dtype == torch.bool:
+            raise ValueError('The gauge transformation is generated by integer k.')
+        phi, n = configuration['phi'], configuration['n']
+        k = k.to(n.device)
+        return dict(configuration) | {'phi': phi + 2 * np.pi * k.to(phi.dtype),
+                                      'n': n + calc.d(self.Lattice, 0, k).to(n.dtype)}
+
     def valid(self, configuration):
         r"""Is ``dn ≡ 0 mod W`` satisfied everywhere (``dn = 0`` when W=∞)?"""
         dn = calc.d(self.Lattice, 1, configuration['n'])

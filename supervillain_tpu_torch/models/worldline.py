@@ -83,6 +83,18 @@ class Worldline:
                 'v': torch.zeros(L.form_shape(2), dtype=idt if self.W < float('inf') else fdt,
                                  device=device)}
 
+    def field_degrees(self):
+        return {'m': 1, 'v': 2}
+
+    def configurations(self, count):
+        """Host-side zeroed storage for ``count`` configurations."""
+        from ..configurations import Configurations
+        L = self.Lattice
+        return Configurations({
+            'm': np.zeros((count,) + L.form_shape(1), dtype=int),
+            'v': np.zeros((count,) + L.form_shape(2),
+                          dtype=int if self.W < float('inf') else float)})
+
     def valid(self, configuration):
         r"""Is ``δm = 0`` satisfied on every site?"""
         return bool((calc.delta(self.Lattice, 1, configuration['m']) == 0).all())

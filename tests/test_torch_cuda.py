@@ -516,3 +516,51 @@ def test_a_card_fleet_measures_on_the_card(cuda):
     boot = tsv.Bootstrap(e, draws=20, seed=0)
     for name in ('SpinSusceptibility', 'VortexCriticalMoment', 'Action_Action'):
         assert np.isfinite(getattr(boot, name)).all()
+
+
+# -- the general generator path on the card ------------------------------------------
+
+def _refuse_cuda(monkeypatch, module, name):
+    """Make ``module.name`` (a plain twin) raise when it is handed a CUDA tensor."""
+    plain = getattr(module, name)
+
+    def guard(*args, **kwargs):
+        if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            raise AssertionError(f'{name} ran on a CUDA tensor')
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, guard)
+
+
+def test_eager_steps_launch_b1_b2_b5_and_no_plain_twin(cuda, monkeypatch):
+    from supervillain_tpu_torch.generators import villain as gv, worldline as gw
+    from supervillain_tpu_torch.ops import sweep, worm, worldline_worm
+    for module, name in ((sweep, 'plain_sweeps'), (worm, 'plain_worms'),
+                         (worldline_worm, 'plain_worldline_worms')):
+        _refuse_cuda(monkeypatch, module, name)
+    counters = (neighborhood_sweeps, classic_worms, worldline_worms)
+    for f in counters:
+        f.launches = 0
+    SV = villain_action(8, 0.5, 2)
+    SI = villain_action(8, 0.5, float('inf'))
+    SW = worldline_action(8, 0.5, 2)
+    e = tsv.Ensemble(SV).generate(3, tsv.Sequentially([gv.NeighborhoodUpdate(SV),
+                                                       gv.ClassicWorm(SV, max_moves=512)]))
+    tsv.Ensemble(SI).generate(2, gv.ExactNeighborhoodUpdate(SI))
+    w = tsv.Ensemble(SW).generate(3, gw.Hammer(SW, fleet=True))
+    assert [f.launches for f in counters] == [5, 3, 3]
+    assert all(SV.valid({'n': torch.as_tensor(n)}) for n in e.n)
+    assert all(SW.valid({'m': torch.as_tensor(m)}) for m in w.m)
+    np.testing.assert_array_equal(e.Worm_Length, e.Vortex_Vortex.sum(axis=(1, 2)))
+
+
+@pytest.mark.parametrize('action,W', [('Villain', 1), ('Villain', 2), ('Worldline', 2)])
+def test_hammer_fleet_runs_on_the_card(cuda, action, W):
+    from supervillain_tpu_torch.generators import villain as gv, worldline as gw
+    S = (villain_action if action == 'Villain' else worldline_action)(8, 0.5, W)
+    G = (gv if action == 'Villain' else gw).Hammer(S, fleet=True)
+    fleet = tsv.sample_fleet(S, G, chains=16, steps=3, thin=2, seed=2)
+    for k, v in fleet.columns.items():
+        assert v.shape[:2] == (3, 16) and np.isfinite(v).all(), k
+    assert fleet.stats['ClassicWorm']['sweeps'] > 0
+    assert np.isfinite(fleet.pooled_ensemble(1).ActionDensity).all()

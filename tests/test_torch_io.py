@@ -187,8 +187,10 @@ def test_continuing_a_jax_chain_starts_from_its_final_configuration(h5):
         gpu_chain = tsv.Ensemble(T).generate(1, rest.generator, seed=0, device='cpu')
         gpu_chain._generator_state = ('cuda', gpu_chain._generator_state[1])
         tsv.Ensemble.continue_from(gpu_chain, 1, device='cpu')
-    with pytest.raises(ValueError, match='KeepEvery'):
-        tsv.Ensemble.continue_from(rest.every(2), 1)
+    # A strided chain continues strided: every() wraps the generator in KeepEvery.
+    strided = tsv.Ensemble.continue_from(rest.every(2), 1, device='cpu')
+    assert isinstance(strided.generator, tsv.KeepEvery) and strided.generator.n == 2
+    assert strided.index[0] == rest.every(2).index[-1] + 2
 
 
 def test_generator_specs_round_trip_and_read_in_jax():
@@ -226,12 +228,15 @@ def test_generator_specs_round_trip_and_read_in_jax():
 
 
 @pytest.mark.parametrize('spec', [
-    {'cls': 'Sequentially', 'generators': [], 'tags': []},
-    {'cls': 'SiteUpdate', 'family': 'villain', 'args': {'interval_phi': 1.0}},
-    {'cls': 'DoNothing', 'family': 'base', 'args': {}}])
+    {'cls': 'NeighborhoodUpdateSlow', 'family': 'reference_implementation', 'args': {}},
+    {'cls': 'Hammer', 'family': 'villain', 'args': {}},
+    {'cls': 'Sequentially', 'generators': [{'cls': 'VillainClassicWormSlow',
+                                            'family': 'reference_implementation',
+                                            'args': {}}], 'tags': ['ClassicWorm']}])
 def test_a_generator_the_port_lacks_raises_naming_it(spec):
     S = tsv.Villain(tsv.Lattice2D(4), 0.5, W=1)
-    with pytest.raises(NotImplementedError, match=spec['cls']):
+    name = spec['generators'][0]['cls'] if spec['cls'] == 'Sequentially' else spec['cls']
+    with pytest.raises(NotImplementedError, match=name):
         PORT_IO.generator_from_spec(spec, S)
 
 
