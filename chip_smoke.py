@@ -106,7 +106,36 @@ G2. ``sample_fleet(S, Hammer(S, fleet=True))``: (a) at L=64, 1024 chains, κ=0.5
     step;
 G3. ``Ensemble.generate`` with the generic Villain Hammer on the card (N=8,
     W=2), ``every(2)`` → ``continue_from``, and, where ``h5py`` imports, the h5
-    round trip of its generator tree.
+    round trip of its generator tree;
+
+and for the user entry points, the port's scripts run in this process through
+``runpy`` with their argv set (``supervillain_tpu_torch/examples/``), every
+count at 0 before a phase and read after it, the plain twins of B1, B2, B4 and
+B5 made to raise if handed a CUDA tensor, each phase's seconds printed, each
+gate |pull| < 4 with the JAX values parsed from the committed logs' text:
+
+E1. ``python -m supervillain_tpu_torch --version`` and ``--license`` as
+    subprocesses: exit 0, printing the port's ``meta.version`` and license;
+E2. ``bkt-scan.py --L 64 --chains 256 --W 1`` (therm 8·L²) at the 9 κ of
+    ``results/bkt-scan-L64.log``: ActionDensity, WindingSq and χ_S/L^(D−2Δ) at
+    every κ; B1 launched;
+E3. the same at W=2 (one worm a record) at the 8 κ of
+    ``results/bkt-scan-W2-L64.log``, χ_V/L^(D−2Δ_V) printed, not gated; B1 and
+    B2 (B3) launched;
+E4. ``bkt-scan.py`` at its defaults (L=256, 32 chains, W=1, B1 resident)
+    at κ=0.74, therm L²/2: ActionDensity and WindingSq against that row of
+    ``results/bkt-scan-L256.log``, χ_S/L^(D−2Δ) printed;
+E5. ``pod-fleet.py --thin 64 --steps 96`` (10240 chains, L=64, κ=0.74): its
+    ActionDensity and WindingSquared against ``results/pod-fleet.log``, and
+    its site-updates/s;
+E6. ``self-dual-fused.py --L 64`` (W=∞, κ=1/2π): the duality pull, and each
+    side's ActionDensity against 1/2; B1 in z-mode, B2, B4 and B5 launched;
+E7. ``winf-line.py --Ls 64 128`` at κ=1/π: η_eff against the exact 1/(2πκ);
+E8. ``end-to-end.py`` (Villain, and Worldline at W=2), ``action-comparison.py``,
+    the two algorithm comparisons, ``no-vortices.py``, ``why-measure-inline.py``
+    (at an even N, which the kernels need, and E8_CONFIGURATIONS) and
+    ``fleet-scan.py``: each exits 0, each comparison of two estimates of one
+    quantity within 4, and B1, B2 and B5 launched.
 
 The next-to-last line is a JSON object describing each kernel (its
 ``max_abs_err`` from the same-draws phases, its launches on its main path, its
@@ -1354,15 +1383,17 @@ def phase_published_quantities(torch, card, villain, worldline):
 
 # -- the general generator path: eager updates, combinators, Hammers, sample_fleet --
 
-#: The plain twins of the kernels that the general path's eager steps reach.
+#: The plain twins of the kernels that the general path's eager steps (B1, B2,
+#: B5) and the ported scripts (those and B4) reach.
 PLAIN_TWINS = (('supervillain_tpu_torch.ops.sweep', 'plain_sweeps'),
                ('supervillain_tpu_torch.ops.worm', 'plain_worms'),
-               ('supervillain_tpu_torch.ops.worldline_worm', 'plain_worldline_worms'))
+               ('supervillain_tpu_torch.ops.worldline_worm', 'plain_worldline_worms'),
+               ('supervillain_tpu_torch.ops.worldline', 'plain_worldline_sweeps'))
 
 
 class PlainTwinsRefused:
     """Inside the block a plain twin handed a CUDA tensor raises: on the card
-    the eager steps must launch the kernels (B1, B2, B5), never their twins."""
+    the eager steps and the scripts must launch the kernels, never their twins."""
 
     def __enter__(self):
         import importlib
@@ -1693,6 +1724,295 @@ def phase_general_host_path(torch):
     say(f'  h5 round trip: the spec rebuilds ({spec["cls"]} of {spec["generator"]["cls"]})')
 
 
+# -- the ported scripts: the CLI tier and the examples, against the JAX logs ----
+
+#: Where the port's example scripts live, from the repo root.
+EXAMPLES = 'supervillain_tpu_torch/examples'
+#: Committed logs of the JAX package's production runs, from the repo root.
+RESULTS = 'results'
+#: A script's result against a committed log, or against an exact value: |pull|.
+SCRIPT_PULL_BOUND = 4.0
+#: Thermalization sweeps of the L=64 scans (E2, E3): 8·L², the factor of the
+#: JAX package's scripts for critical chains.  At 2·L² the chains just below
+#: κ_c (0.6 and 0.65 at W=1, 0.14 and 0.16 at W=2) are still relaxing from the
+#: cold start (PERF.md §7).
+SCAN_THERM = 8 * 64 ** 2
+#: E8's chain length (configurations) for the eager-generator scripts, and
+#: fleet-scan.py's records and cut.
+E8_CONFIGURATIONS = 1000
+E8_FLEET_STEPS, E8_FLEET_CUT = 40, 10
+
+# An Uncertain as the JAX package prints it: '+7.1357(23) × 10^-1' (error in
+# units of the last digit), '+8.5(3.1)' (error in the value's units),
+# '(+1.00 ± 10.00) × 10^-1' or, with no error, '+1.25 × 10^-1'.
+_UNCERTAIN = re.compile(
+    r'(?:(?P<mean>[+-]\d+(?:\.\d+)?)(?:\((?P<err>[\d.]+)\))?'
+    r'|\((?P<pm_mean>[+-]?\d+(?:\.\d+)?) ± (?P<pm_err>\d+(?:\.\d+)?)\))'
+    r'(?: × 10\^(?P<exp>[+-]\d+))?')
+
+
+def parse_uncertain(match):
+    """(mean, error) of one :data:`_UNCERTAIN` match."""
+    scale = 10.0 ** int(match['exp'] or 0)
+    if match['pm_mean'] is not None:
+        return float(match['pm_mean']) * scale, float(match['pm_err']) * scale
+    mean, err = match['mean'], match['err']
+    if err is None:
+        return float(mean) * scale, 0.0
+    if '.' not in err:       # in units of the mean's last digit
+        err = int(err) * 10.0 ** -len(mean.partition('.')[2])
+    return float(mean) * scale, float(err) * scale
+
+
+#: The columns of a bkt-scan table row after κ and the acceptance, in order.
+SCAN_COLUMNS = ('S', 'W2', 'chi', 'chi_scaled', 'chiV_scaled')
+#: ... and those E2 and E3 hold against the logs: ActionDensity, WindingSq, χ_S/L^(D−2Δ).
+SCAN_GATED = ('S', 'W2', 'chi_scaled')
+
+
+def read_scan_log(path):
+    """{κ: {column: (mean, error)}} of the table in a bkt-scan log, columns
+    named as the groups of its h5 file (:data:`SCAN_COLUMNS`)."""
+    rows = {}
+    for line in open(path, encoding='utf-8'):
+        head = re.match(r'\s*(\d+\.\d+)\s+[\d.]+%\s', line)
+        if head is None:
+            continue
+        rest = line[head.end():].split('sect=')[0]
+        values = [parse_uncertain(m) for m in _UNCERTAIN.finditer(rest)]
+        rows[float(head[1])] = dict(zip(SCAN_COLUMNS, values))
+    return rows
+
+
+def read_fleet_log(path):
+    """{name: (mean, error)} of the 'name = value' lines of pod-fleet.log."""
+    values = {}
+    for line in open(path, encoding='utf-8'):
+        m = re.match(r'(\w+)\s*=\s*(\S.*)$', line.strip())
+        if m:
+            values[m[1]] = parse_uncertain(_UNCERTAIN.match(m[2]))
+    return values
+
+
+def repo_root():
+    import pathlib
+    return pathlib.Path(__file__).resolve().parent
+
+
+def run_script(name, argv):
+    """Run the port's example ``name`` in this process as ``python name argv``
+    would, and return its globals (runpy), so that the kernels' launch
+    counts can be read after it."""
+    import runpy
+    path = repo_root() / EXAMPLES / name
+    saved = sys.argv
+    sys.argv = [str(path)] + [str(a) for a in argv]
+    try:
+        return runpy.run_path(str(path), run_name='__main__')
+    finally:
+        sys.argv = saved
+
+
+def script_counters():
+    from supervillain_tpu_torch.ops.hammer import hammer_sweeps
+    from supervillain_tpu_torch.ops.worldline import worldline_sweeps
+    from supervillain_tpu_torch.ops.worldline_hammer import worldline_hammer_sweeps
+    return general_counters() | {'hammer': hammer_sweeps, 'worldline_sweep': worldline_sweeps,
+                                 'worldline_hammer': worldline_hammer_sweeps}
+
+
+def script_phase(torch, card, label, runs, kernels):
+    """Run each (script, argv) of ``runs`` with every count at 0 and the plain
+    twins refused; require that each of ``kernels`` launched.  Returns the
+    scripts' globals and the launches."""
+    counters = script_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    results = []
+    with PlainTwinsRefused():
+        for script, argv in runs:
+            say(f'  -- {script} {" ".join(str(a) for a in argv)}')
+            t1 = time.perf_counter()
+            results.append(run_script(script, argv))
+            torch.cuda.synchronize()
+            say(f'  -- {script}: {time.perf_counter() - t1!r} s')
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    say(f'  {label}: {seconds!r} s (card: {card}); launches {launches}')
+    require(all(launches[k] > 0 for k in kernels), f'{label}: a kernel never launched: {launches}')
+    return results, launches
+
+
+def gate_pulls(label, pulls, bound=SCRIPT_PULL_BOUND):
+    """Print each pull and require |pull| < bound of every one."""
+    for what, p in pulls.items():
+        say(f'    {label} {what}: pull {p:+.3f}')
+    worst = max(pulls, key=lambda k: abs(pulls[k]))
+    require(abs(pulls[worst]) < bound, f'{label}: |pull| of {worst} is {abs(pulls[worst]):.3f}')
+
+
+def shown(value):
+    """A (mean, error) pair as the JAX logs print it."""
+    from supervillain_tpu_torch.analysis import Uncertain
+    return str(Uncertain(*value))
+
+
+def signed_pull(ours, theirs):
+    """(ours − theirs)/√(σ_ours² + σ_theirs²) of two (mean, error) pairs."""
+    return (ours[0] - theirs[0]) / math.hypot(ours[1], theirs[1])
+
+
+def phase_cli():
+    """E1: python -m supervillain_tpu_torch --version and --license, both at once."""
+    from supervillain_tpu_torch import license, meta
+    say('== phase E1: python -m supervillain_tpu_torch --version / --license')
+    t0 = time.perf_counter()
+    runs = [(flag, text, subprocess.Popen([sys.executable, '-m', 'supervillain_tpu_torch', flag],
+                                          cwd=repo_root(), stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+            for flag, text in (('--version', meta.version), ('--license', license.license()))]
+    for flag, text, process in runs:
+        out, err = process.communicate(timeout=300)
+        require(process.returncode == 0, f'E1: {flag} exited {process.returncode}: {err}')
+        require(out.strip() == text.strip(), f'E1: {flag} printed {out[:200]!r}')
+        say(f'  {flag}: exit 0, {len(out.strip())} characters as meta/license say')
+    say(f'  E1: {time.perf_counter() - t0!r} s')
+
+
+def scan_against_log(label, results, log, columns):
+    """Pulls of a bkt-scan's results against a committed log's rows, per κ."""
+    pulls = {}
+    for kappa, ours in results.items():
+        theirs = log[kappa]
+        for c in columns:
+            pulls[f'κ={kappa} {c}'] = signed_pull(ours[c], theirs[c])
+        say(f'    {label} κ={kappa} ({ours["seconds"]!r} s): ' + ', '.join(
+            f'{c} {shown(ours[c])} against {shown(theirs[c])}' for c in ('S', 'W2', 'chi_scaled')))
+    return pulls
+
+
+def phase_scan_w1(torch, card):
+    """E2: bkt-scan.py at L=64, W=1 against results/bkt-scan-L64.log."""
+    log = read_scan_log(repo_root() / RESULTS / 'bkt-scan-L64.log')
+    say(f'== phase E2: bkt-scan.py --L 64 --chains 256 --W 1 --therm-sweeps {SCAN_THERM} at the '
+        f'{len(log)} κ of results/bkt-scan-L64.log')
+    (g,), launches = script_phase(torch, card, 'E2', [('bkt-scan.py', [
+        '--L', 64, '--chains', 256, '--W', 1, '--therm-sweeps', SCAN_THERM, '--kappas', *log])],
+        ('sweep',))
+    gate_pulls('E2', scan_against_log('E2', g['results'], log, SCAN_GATED))
+    return launches
+
+
+def phase_scan_w2(torch, card):
+    """E3: bkt-scan.py at L=64, W=2 against results/bkt-scan-W2-L64.log."""
+    log = read_scan_log(repo_root() / RESULTS / 'bkt-scan-W2-L64.log')
+    say(f'== phase E3: bkt-scan.py --L 64 --chains 256 --W 2 --therm-sweeps {SCAN_THERM} at the '
+        f'{len(log)} κ of results/bkt-scan-W2-L64.log (worms 1)')
+    (g,), launches = script_phase(torch, card, 'E3', [('bkt-scan.py', [
+        '--L', 64, '--chains', 256, '--W', 2, '--therm-sweeps', SCAN_THERM, '--kappas', *log])],
+        ('sweep', 'worm', 'hammer'))
+    results = g['results']
+    for kappa, ours in results.items():
+        say(f'    E3 κ={kappa} χ_V/L^(D-2Δ_V) {shown(ours["chiV_scaled"])} against '
+            f'{shown(log[kappa]["chiV_scaled"])}: pull '
+            f'{signed_pull(ours["chiV_scaled"], log[kappa]["chiV_scaled"]):+.3f} (not gated)')
+    gate_pulls('E3', scan_against_log('E3', results, log, SCAN_GATED))
+    return launches
+
+
+def phase_scan_l256(torch, card):
+    """E4: bkt-scan.py at its defaults (L=256, W=1), κ=0.74, against
+    results/bkt-scan-L256.log: the local quantities."""
+    from supervillain_tpu_torch.ops.sweep import sweep_plan
+    log = read_scan_log(repo_root() / RESULTS / 'bkt-scan-L256.log')
+    plan = sweep_plan(256)
+    say(f'== phase E4: bkt-scan.py at its defaults (L=256, 32 chains, W=1) --kappas 0.74 '
+        f'--therm-sweeps 32768, against results/bkt-scan-L256.log; sweep plan {plan}')
+    require(plan.regime == 'resident', f'E4: L=256 is not in the resident regime: {plan}')
+    (g,), launches = script_phase(torch, card, 'E4', [('bkt-scan.py', [
+        '--kappas', 0.74, '--therm-sweeps', 32768])], ('sweep',))
+    ours, theirs = g['results'][0.74], log[0.74]
+    say(f'    E4 κ=0.74 χ_S/L^(D-2Δ) {shown(ours["chi_scaled"])} against '
+        f'{shown(theirs["chi_scaled"])}: pull '
+        f'{signed_pull(ours["chi_scaled"], theirs["chi_scaled"]):+.3f} (not gated)')
+    gate_pulls('E4', scan_against_log('E4', {0.74: ours}, {0.74: theirs}, ('S', 'W2')))
+    return launches
+
+
+def phase_pod_fleet(torch, card):
+    """E5: pod-fleet.py against results/pod-fleet.log."""
+    log = read_fleet_log(repo_root() / RESULTS / 'pod-fleet.log')
+    say('== phase E5: pod-fleet.py --thin 64 --steps 96 (10240 chains, L=64, κ=0.74, therm 2048) '
+        'against results/pod-fleet.log')
+    (g,), launches = script_phase(torch, card, 'E5',
+                                  [('pod-fleet.py', ['--thin', 64, '--steps', 96])], ('sweep',))
+    result = g['result']
+    say(f'    E5: {result["site_updates_per_second"]!r} site-updates/s over '
+        f'{result["seconds"]!r} s (card: {card})')
+    gate_pulls('E5', {name: signed_pull(result[name], log[name])
+                      for name in ('ActionDensity', 'WindingSquared')})
+    return launches
+
+
+def phase_self_dual(torch, card):
+    """E6: self-dual-fused.py --L 64: the duality, and each side at 1/2."""
+    say('== phase E6: self-dual-fused.py --L 64 (W=∞, κ=1/2π, both fused Hammers)')
+    (g,), launches = script_phase(torch, card, 'E6', [('self-dual-fused.py', ['--L', 64])],
+                           ('sweep', 'worm', 'hammer', 'worldline_sweep', 'worldline_worm',
+                            'worldline_hammer'))
+    result = g['result']
+    gate_pulls('E6', {'duality': result['pull'],
+                      **{f'{side} ActionDensity − 1/2': signed_pull(result[side.lower()], (0.5, 0.0))
+                         for side in ('Villain', 'Worldline')}})
+    return launches
+
+
+def phase_winf_line(torch, card):
+    """E7: winf-line.py at κ = 1/π: η_eff against the exact 1/(2πκ)."""
+    kappa = 1 / math.pi
+    eta = 1 / (2 * math.pi * kappa)
+    say(f'== phase E7: winf-line.py --Ls 64 128 --kappas {kappa!r} (η exact {eta!r})')
+    (g,), launches = script_phase(torch, card, 'E7', [('winf-line.py', [
+        '--Ls', 64, 128, '--kappas', repr(kappa)])], ('sweep', 'worm', 'hammer'))
+    measured, = g['results'][kappa]['eta']
+    gate_pulls('E7', {'η_eff(64, 128) − 1/(2πκ)': signed_pull(measured, (eta, 0.0))})
+    return launches
+
+
+def phase_small_scripts(torch, card):
+    """E8: the eager-generator scripts and fleet-scan.py on the card."""
+    C = E8_CONFIGURATIONS
+    runs = [('end-to-end.py', ['--N', 6, '--configurations', C]),
+            ('end-to-end.py', ['--action', 'worldline', '--W', 2, '--N', 6, '--configurations', C]),
+            ('action-comparison.py', ['--N', 6, '--configurations', C]),
+            ('villain-algorithm-comparison.py', ['--N', 6, '--configurations', C]),
+            ('worldline-algorithm-comparison.py', ['--N', 6, '--configurations', C]),
+            ('no-vortices.py', ['--N', 12, '--configurations', C]),
+            ('why-measure-inline.py', ['--N', 8, '--configurations', C]),
+            ('fleet-scan.py', ['--steps', E8_FLEET_STEPS, '--cut', E8_FLEET_CUT])]
+    say(f'== phase E8: the eager-generator scripts ({C} configurations, even N: the kernels '
+        f'need one) and fleet-scan.py ({E8_FLEET_STEPS} records, cut {E8_FLEET_CUT})')
+    results, launches = script_phase(torch, card, 'E8', runs, ('sweep', 'worm', 'worldline_worm'))
+    pulls = {}
+    for (script, _), g in zip(runs, results):
+        for what, p in g.get('pulls', {}).items():
+            pulls[f'{script} {what}'] = p
+        dxs = ('(0, 1)', '(1, 1)', '(2, 2)', '(0, N//2)')
+        for dx, p in zip(dxs, g.get('correlator_pulls', ())):
+            pulls[f'{script} Spin_Spin/Vortex_Vortex at {dx}'] = p
+    # Inline against taxicab Spin_Spin_Normalized where the taxicab's
+    # reweighting overlaps (the nearest displacements; ROADMAP C5).
+    g = results[6]
+    for dx in ((0, 1), (1, 1)):
+        pulls[f'why-measure-inline.py inline − taxicab at {dx}'] = signed_pull(
+            (g['inline'].mean(axis=0)[dx], g['inline'].std(axis=0)[dx]),
+            (g['taxicab'].mean(axis=0)[dx], g['taxicab'].std(axis=0)[dx]))
+    gate_pulls('E8', pulls)
+    return launches
+
+
 def main():
     import torch
 
@@ -1722,6 +2042,11 @@ def main():
     exact = phase_general_exact(torch)
     general = phase_general_full_width(torch, card)
     phase_general_host_path(torch)
+    phase_cli()
+    scripts = [phase(torch, card) for phase in (
+        phase_scan_w1, phase_scan_w2, phase_scan_l256, phase_pod_fleet, phase_self_dual,
+        phase_winf_line, phase_small_scripts)]
+    scripts = {k: sum(s[k] for s in scripts) for k in scripts[0]}
     launches |= w_launches
     ms |= w_ms
     plain_ms |= w_plain_ms
@@ -1743,7 +2068,8 @@ def main():
          'launches': launches[name],
          'launches_by_path': {'sample_fused_fleet (phases 6, W4)': launches[name],
                               'sample_fleet, exact cases (G1)': exact.get(name, 0),
-                              'sample_fleet Hammer(fleet=True), L=256 (G2b)': general.get(name, 0)},
+                              'sample_fleet Hammer(fleet=True), L=256 (G2b)': general.get(name, 0),
+                              'the ported scripts (E2-E8)': scripts[name]},
          'max_abs_err': err[name], 'ms': ms[name],
          'plain_ms': plain_ms[name], 'bound_ms': bounds[name][0], 'bound_by': bounds[name][1],
          'library_ms': None}

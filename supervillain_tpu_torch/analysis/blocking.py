@@ -1,5 +1,6 @@
 """Blocking (binning) of consecutive configurations: a NumPy copy of
-:mod:`supervillain_tpu.analysis.blocking` without its plotting method."""
+:mod:`supervillain_tpu.analysis.blocking`, whose ``plot_history`` takes no
+mutable default."""
 
 from __future__ import annotations
 
@@ -43,6 +44,19 @@ class Blocking(ReadWriteable):
         return (obs[self.drop:] * np.expand_dims(
             weight[self.drop:], axis=tuple(range(1, 1 + len(shape))))
         ).reshape(-1, self.width, *shape).mean(axis=1)
+
+    def plot_history(self, axes, observable, label=None, histogram_label=None,
+                     bins=31, density=True, alpha=0.5, color=None, history_kwargs=None):
+        """History and histogram panels (``axes[0]``, ``axes[1]``) for a scalar
+        observable.  ``history_kwargs`` go to the history's ``plot``; the
+        caller's dict is not changed."""
+        history_kwargs = {'label': label} | dict(history_kwargs or {})
+        if histogram_label is None:
+            histogram_label = label
+        data = np.asarray(getattr(self, observable))
+        axes[0].plot(self.index, data, color=color, **history_kwargs)
+        axes[1].hist(data, label=histogram_label, orientation='horizontal',
+                     bins=bins, density=density, color=color, alpha=alpha)
 
     def __getattr__(self, name):
         if name.startswith('__'):

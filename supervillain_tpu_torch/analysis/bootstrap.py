@@ -1,5 +1,5 @@
 """Weighted bootstrap resampling (counterpart of
-:class:`supervillain_tpu.analysis.Bootstrap`, without its plotting methods).
+:class:`supervillain_tpu.analysis.Bootstrap`).
 
 The resampling runs on the ensemble's device (the card unless the ensemble was
 made with ``device='cpu'``) as one matrix product: with ``K[j, d]`` the number
@@ -90,6 +90,37 @@ class Bootstrap:
         """(central value, uncertainty) for the named observable or derived quantity."""
         o = getattr(self, observable)
         return (np.mean(o, axis=0), np.std(o, axis=0))
+
+    # -- plotting ----------------------------------------------------------
+    # Each method brings the draws to the host once, as a NumPy array, for
+    # the axis; matplotlib is the caller's (only the axis is touched).
+
+    def plot_band(self, axis, observable, color=None):
+        """Horizontal ±1σ band for a scalar observable."""
+        data = np.asarray(getattr(self, observable))
+        mean = data.mean(axis=0)
+        err = data.std(axis=0)
+        if np.shape(mean) != ():
+            raise ValueError(f'{observable} has shape {np.shape(mean)}')
+        if color is None:
+            color = axis.get_lines()[-1].get_color()
+        axis.axhspan(mean - err, mean + err, color=color, alpha=0.5, linestyle='none')
+
+    def plot_correlator(self, axis, correlator, offset=0., symmetrize=True,
+                        multiplier=1., linestyle='none', marker='o',
+                        markerfacecolor='none', **kwargs):
+        """Correlator vs |Δx| with error bars, optionally point-group symmetrized."""
+        L = self.Ensemble.Action.Lattice
+        dx = L.linearize(L.R_squared) ** 0.5
+        C = np.asarray(getattr(self, correlator)).real
+        if symmetrize:
+            C = L.symmetrize(C)
+        axis.errorbar(dx + offset,
+                      multiplier * np.asarray(L.linearize(C.mean(axis=0))),
+                      multiplier * np.asarray(L.linearize(C.std(axis=0))),
+                      linestyle=linestyle, marker=marker,
+                      markerfacecolor=markerfacecolor, **kwargs)
+        axis.set_xlabel('∆x')
 
     # -- persistence --------------------------------------------------------
 

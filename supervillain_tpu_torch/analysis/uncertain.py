@@ -123,7 +123,10 @@ class Uncertain:
     @classmethod
     def from_string(cls, string):
         """Parse ``'1.2346(32)'``, ``'9.109(28)E-31'``, ``'1.672(51) × 10^-27'``,
-        or ``'(1836.15 ± 0.01)'`` back into an :class:`Uncertain`."""
+        ``'8.5(3.1)'`` or ``'(1836.15 ± 0.01)'`` back into an :class:`Uncertain`.
+        An uncertainty with a decimal point is in the mean's units, as
+        :meth:`__format__` writes it (the JAX package's copy reads it in units
+        of the last digit, ten times too small)."""
         string = string.strip()
         if 'E' in string:
             stem, _, exp = string.partition('E')
@@ -139,5 +142,8 @@ class Uncertain:
             mean, _, err = string[1:-1].partition('±')
             return cls(float(mean), float(err))
         mean, _, err = string.partition('(')
+        err = err.rstrip(')')
+        if '.' in err:      # one trustworthy digit, '8.5(3.1)': in the mean's units
+            return cls(float(mean), float(err))
         decimals = len(mean.partition('.')[2])
-        return cls(float(mean), float(err.rstrip(')')) * 10.0 ** (-decimals))
+        return cls(float(mean), float(err) * 10.0 ** (-decimals))

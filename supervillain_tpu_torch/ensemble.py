@@ -246,6 +246,21 @@ class Ensemble:
             e.generator = KeepEvery(stride, self.generator, blocked_inline=False)
         return e
 
+    # -- plotting ------------------------------------------------------------
+
+    def plot_history(self, axes, observable, label=None, histogram_label=None,
+                     bins=31, density=True, alpha=0.5, color=None, history_kwargs=None):
+        """History and histogram panels (``axes[0]``, ``axes[1]``) for a scalar
+        observable.  ``history_kwargs`` go to the history's ``plot``; the
+        caller's dict is not changed."""
+        history_kwargs = {'label': label} | dict(history_kwargs or {})
+        if histogram_label is None:
+            histogram_label = label
+        data = np.asarray(getattr(self, observable))
+        axes[0].plot(self.index, data, color=color, **history_kwargs)
+        axes[1].hist(data, label=histogram_label, orientation='horizontal',
+                     bins=bins, density=density, color=color, alpha=alpha)
+
     # -- persistence -----------------------------------------------------------
 
     def to_h5(self, group):
