@@ -133,16 +133,52 @@ E6. ``self-dual-fused.py --L 64`` (W=∞, κ=1/2π): the duality pull, and each
 E7. ``winf-line.py --Ls 64 128`` at κ=1/π: η_eff against the exact 1/(2πκ);
 E8. ``end-to-end.py`` (Villain, and Worldline at W=2), ``action-comparison.py``,
     the two algorithm comparisons, ``no-vortices.py``, ``why-measure-inline.py``
-    (at an even N, which the kernels need, and E8_CONFIGURATIONS) and
-    ``fleet-scan.py``: each exits 0, each comparison of two estimates of one
-    quantity within 4, and B1, B2 and B5 launched.
+    (at an even N and E8_CONFIGURATIONS) and ``fleet-scan.py``: each exits 0,
+    each comparison of two estimates of one quantity within 4, and B1, B2 and
+    B5 launched;
+
+and for odd N, where the torus needs four colors (B1 and B4 read each site's
+color from a table; B2 and B5 index any N):
+
+O1. B1, B2, B4 and B5 at N = 5, 7, 11 (256 chains; B1 at W = 1, 2 and ∞, B2 at
+    W = 1, 2 and ∞, B4 and B5 at W = 1, 2 and ∞) and at N = 255 (512 chains)
+    against their plain twins fed the kernels' draws, as phases 7 and W5
+    compare them; dn ≡ 0 (mod W), dn = 0 at W=∞ and δm = 0 bitwise after every
+    call; each kernel's time per call at N = 255 beside N = 256 (512 chains; 50
+    sweeps, or one worm a chain) with its bound, and B5's nanoseconds per move
+    of the longest worm at both; and at even N the digests of
+    the four kernels' outputs on fixed inputs and seeds equal to those of the
+    kernels at commit ef03d56 (EVEN_N_DIGESTS);
+O2. the six eager-generator scripts of E8 at their own default (odd) N and
+    O2_CONFIGURATIONS, gated as E8 is;
+
+and for general D, where no kernel exists (the TPU kernels are D=2 only) and
+every step runs PyTorch operations on the card, every kernel's count read as
+0 after each phase:
+
+D1. the calculus (d, δ, the incidence sums, the Laplacian, ★, ∧, push, pull),
+    the sparse functions and ``Form`` at D = 3, 4 on the card against the port
+    on the CPU: integer forms bit for bit, float32 to 1e-5 relative; and the
+    topological observables at D=4 measured and bootstrapped on the card
+    against the CPU in float64 (1e-4 relative);
+D2. ``d4-topology.py`` at the shape of each committed log (N=8, 32 chains,
+    60×2 steps, κ 0.2/0.4/0.6 at W=1 and W=∞; N=12, 16 chains, 40×2 steps,
+    κ=0.4 at W=1): ActionDensity, WindingSquared and ⟨Q²⟩·Λ against the logs
+    within |pull| < 4, and WindingSquared ≡ 0 and Q ≡ 0 at W=∞; and at W=∞
+    (128 chains × 240 steps) ⟨ActionDensity⟩ against the exact free-field
+    value (Λ − 1)/(2Λ), per-chain means within |pull| < 4;
+D3. the generic Worldline Hammer at D = 3 and 4 (N=8, κ=0.2, W=1, 32 chains
+    on the card, 8 on the CPU): δm = 0 bitwise on every kept draw, finite
+    ActionDensity, per-chain means of card and CPU within |pull| < 4;
+D4. ``benchmark/dimension.py`` at D=4, N=8, 32 to 8192 chains: site-updates/s.
 
 The next-to-last line is a JSON object describing each kernel (its
 ``max_abs_err`` from the same-draws phases, its launches on its main path, its
 time, its plain version's time and the least time the card could take for the
 same work; ``launches_by_path`` splits its launches by the path that made
-them); the last line is ``{"ok": true, "device": {...}}``.  Nothing of
-JAX is imported.
+them, ``launches_by_parity`` by even and odd N, and ``at_N255`` and
+``at_N256_same_run`` give O1's times and bounds); the last line is
+``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -1183,12 +1219,20 @@ def short_fleet(sv, S, chains, steps, thin, seed):
                                  keep_fields=True, seed=seed, p_n=0.1 if villain else None)
 
 
+def d2_names(registry):
+    """The sorted names of a registry's quantities that D=2 measures: all but
+    the D=4-only topological ones (held at D=4 by phase D1)."""
+    from supervillain_tpu_torch.observables import topological
+    return sorted(name for name, cls in registry.items() if cls.__module__ != topological.__name__)
+
+
 def phase_card_against_cpu(torch):
     """M1: every observable and derived quantity measured and bootstrapped on
     the card against the same port code on the CPU in float64."""
     import supervillain_tpu_torch as sv
     from supervillain_tpu_torch.observables import derived_registry, registry
 
+    primaries_2d, derived_2d = d2_names(registry), d2_names(derived_registry)
     N, B, kappa, W = 8, 256, 0.5, 2
     say(f'== phase M1: measurement on the card against the CPU in float64 (N={N}, {B} chains, '
         f'κ={kappa}, W={W}; relative bound {MEASURE_RTOL})')
@@ -1199,7 +1243,7 @@ def phase_card_against_cpu(torch):
         last = {k: v[-1] for k, v in fleet.columns.items()}
         prefix = histogram.split('_')[0]
         cases = (
-            ('fields', {k: last[k] for k in S.fields}, sorted(registry), sorted(derived_registry)),
+            ('fields', {k: last[k] for k in S.fields}, primaries_2d, derived_2d),
             ('inline histogram', {histogram: last[histogram]}, [histogram],
              [f'{histogram}_Normalized', f'{prefix}Susceptibility',
               f'{prefix}SusceptibilityScaled', f'{prefix}CriticalMoment']))
@@ -1739,8 +1783,12 @@ SCRIPT_PULL_BOUND = 4.0
 SCAN_THERM = 8 * 64 ** 2
 #: E8's chain length (configurations) for the eager-generator scripts, and
 #: fleet-scan.py's records and cut.
-E8_CONFIGURATIONS = 1000
-E8_FLEET_STEPS, E8_FLEET_CUT = 40, 10
+#: E8's depth: the eager scripts at an even N, with fewer configurations than
+#: O2 runs them with at their odd defaults (the host-bound eager steps are most
+#: of the run's time), and fleet-scan.py's records and cut.
+E8_CONFIGURATIONS = 500
+E8_FLEET_STEPS, E8_FLEET_CUT = 20, 5
+O2_CONFIGURATIONS = 1000
 
 # An Uncertain as the JAX package prints it: '+7.1357(23) × 10^-1' (error in
 # units of the last digit), '+8.5(3.1)' (error in the value's units),
@@ -1992,9 +2040,18 @@ def phase_small_scripts(torch, card):
             ('no-vortices.py', ['--N', 12, '--configurations', C]),
             ('why-measure-inline.py', ['--N', 8, '--configurations', C]),
             ('fleet-scan.py', ['--steps', E8_FLEET_STEPS, '--cut', E8_FLEET_CUT])]
-    say(f'== phase E8: the eager-generator scripts ({C} configurations, even N: the kernels '
-        f'need one) and fleet-scan.py ({E8_FLEET_STEPS} records, cut {E8_FLEET_CUT})')
+    say(f'== phase E8: the eager-generator scripts ({C} configurations, even N) and '
+        f'fleet-scan.py ({E8_FLEET_STEPS} records, cut {E8_FLEET_CUT})')
     results, launches = script_phase(torch, card, 'E8', runs, ('sweep', 'worm', 'worldline_worm'))
+    gate_pulls('E8', eager_script_pulls(runs, results))
+    return launches
+
+
+def eager_script_pulls(runs, results):
+    """The pulls the eager-generator scripts return, by script and quantity,
+    and why-measure-inline.py's inline against taxicab Spin_Spin_Normalized
+    where the taxicab's reweighting overlaps (the nearest displacements;
+    ROADMAP C5)."""
     pulls = {}
     for (script, _), g in zip(runs, results):
         for what, p in g.get('pulls', {}).items():
@@ -2002,15 +2059,492 @@ def phase_small_scripts(torch, card):
         dxs = ('(0, 1)', '(1, 1)', '(2, 2)', '(0, N//2)')
         for dx, p in zip(dxs, g.get('correlator_pulls', ())):
             pulls[f'{script} Spin_Spin/Vortex_Vortex at {dx}'] = p
-    # Inline against taxicab Spin_Spin_Normalized where the taxicab's
-    # reweighting overlaps (the nearest displacements; ROADMAP C5).
-    g = results[6]
+    g = next(g for (script, _), g in zip(runs, results) if script == 'why-measure-inline.py')
     for dx in ((0, 1), (1, 1)):
         pulls[f'why-measure-inline.py inline − taxicab at {dx}'] = signed_pull(
             (g['inline'].mean(axis=0)[dx], g['inline'].std(axis=0)[dx]),
             (g['taxicab'].mean(axis=0)[dx], g['taxicab'].std(axis=0)[dx]))
-    gate_pulls('E8', pulls)
+    return pulls
+
+
+# -- odd N: the color-table passes of B1 and B4; B2 and B5 at any N ------------
+
+#: Odd sides of O1's same-draws checks, and its large odd side (beside 256).
+ODD_N = (5, 7, 11)
+ODD_LARGE_N = 255
+#: Moves a worm may make in O1's replays at N=255 (the plain worm is a host loop).
+ODD_REPLAY_CAP = 1024
+#: SHA-256 prefixes of B1, B2, B4 and B5's outputs at even N on fixed inputs and
+#: seeds (:func:`even_n_digests`), as the kernels at commit ef03d56
+#: give them on an H100: O1 requires this tree's kernels to give the same bits.
+EVEN_N_DIGESTS = {
+    'B1 N=256 W=1': '83918d37ea7f0134',
+    'B1 N=256 W=2': '91ffd2b270ed7be8',
+    'B1 N=256 W=inf': 'bc4b6ad3973b2581',
+    'B1 N=512 W=1': '04937127558c1e13',
+    'B1 N=512 W=2': '498ee46d69bf0d12',
+    'B1 N=512 W=inf': 'e0de5e9449a9cb83',
+    'B2 N=64 W=1': 'bbfcd0700fe1ef64',
+    'B2 N=64 W=2': 'c0f12114c3d30502',
+    'B4 N=64 W=2': 'ec8cdf4bc567b9e3',
+    'B5 N=64 W=2': 'e8450df77f930002',
+    'B4 N=64 W=inf': '70422b4fff5aee7f',
+    'B5 N=64 W=inf': '923420b0614a7a03',
+}
+
+
+def digest(*tensors):
+    """First 16 hex digits of the SHA-256 of the tensors' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def even_n_digests(torch):
+    """Digests of the four kernels' outputs at even N, from inputs and seeds
+    fixed here: B1 in the resident (N=256) and streaming (N=512) regimes at
+    W = 1, 2 and ∞, B2 at W = 1 and 2 (capped), B4 at W = 2 and ∞ and B5 after
+    it.  Uses only the wrappers' public arguments, so another checkout's
+    package gives its own kernels' digests."""
+    from supervillain_tpu_torch.ops.sweep import neighborhood_sweeps
+    from supervillain_tpu_torch.ops.worldline import worldline_sweeps
+    from supervillain_tpu_torch.ops.worldline_worm import worldline_worms
+    from supervillain_tpu_torch.ops.worm import classic_worms
+
+    inf = float('inf')
+    g = torch.Generator().manual_seed(2024)
+    out = {}
+    for N, B in ((256, 16), (512, 2)):
+        phi = ((torch.rand((B, 1, N, N), generator=g) - 0.5) * 8 * math.pi).cuda()
+        k = torch.randint(-1, 2, (B, 2, N, N), generator=g, dtype=torch.int32).cuda()
+        for W, p_n in ((1, None), (2, 0.3), (inf, 0.3)):
+            res = neighborhood_sweeps(phi, k * (1 if W == inf else W), kappa=0.4, W=W,
+                                      interval_phi=1.5, interval_n=1, sweeps=4, p_n=p_n,
+                                      generator=torch.Generator().manual_seed(7))
+            out[f'B1 N={N} W={W}'] = digest(res[0], res[1], res[2], *res[3].values())
+    N, B = 64, 256
+    phi = ((torch.rand((B, 1, N, N), generator=g) - 0.5) * 2 * math.pi).cuda()
+    zero = torch.zeros((B, 2, N, N), dtype=torch.int32, device='cuda')
+    for W, cap in ((1, None), (2, 4096)):
+        res = classic_worms(phi, zero, kappa=0.5, W=W, worms=2, max_worm_moves=cap,
+                            generator=torch.Generator().manual_seed(8))
+        out[f'B2 N={N} W={W}'] = digest(*res)
+    for W in (2, inf):
+        v = (torch.rand((B, 1, N, N), generator=g) * 4 - 2 if W == inf
+             else torch.randint(-2, 3, (B, 1, N, N), generator=g, dtype=torch.int32)).cuda()
+        res = worldline_sweeps(zero, v, kappa=0.5, W=W, sweeps=4,
+                               generator=torch.Generator().manual_seed(9))
+        out[f'B4 N={N} W={W}'] = digest(res[0], res[1], res[2], res[3]['ActionDensity'])
+        worm = worldline_worms(res[0], res[1], kappa=0.5, W=W, worms=2, max_worm_moves=4096,
+                               generator=torch.Generator().manual_seed(10))
+        out[f'B5 N={N} W={W}'] = digest(*worm)
+    torch.cuda.synchronize()
+    return out
+
+
+def villain_invariant(torch, n, W):
+    """dn ≡ 0 (mod W), or dn = 0 at W=∞, on every plaquette of every chain."""
+    from supervillain_tpu_torch.ops import calculus
+    from supervillain_tpu_torch.ops.sweep import lattice_of
+    dn = calculus.d(lattice_of(n), 1, n)
+    return bool(((dn == 0) if W == float('inf') else (dn % W == 0)).all())
+
+
+def odd_same_draws(torch, N, B, sweeps, cap, villain_modes, worldline_ws, seed):
+    """B1, B2, B4 and B5 at side N against their plain twins on the kernels'
+    draws, with the exact invariants checked bitwise after each kernel call.
+    Returns the largest error of each kernel."""
+    from supervillain_tpu_torch.ops import kernels
+    from supervillain_tpu_torch.ops.sweep import (KernelSweepDraws, neighborhood_sweeps,
+                                                  plain_sweeps)
+    from supervillain_tpu_torch.ops.worldline import (KernelWorldlineSweepDraws,
+                                                      plain_worldline_sweeps, worldline_sweeps)
+    from supervillain_tpu_torch.ops.worldline_worm import (KernelWorldlineWormDraws,
+                                                           plain_worldline_worms, worldline_worms)
+    from supervillain_tpu_torch.ops.worm import KernelWormDraws, classic_worms, plain_worms
+
+    inf = float('inf')
+    err = {'sweep': 0.0, 'worm': 0.0, 'worldline_sweep': 0.0, 'worldline_worm': 0.0}
+
+    def kernel_seed(s):
+        return kernels.seed_from(torch.Generator().manual_seed(s))
+
+    g = torch.Generator().manual_seed(seed)
+    phi = ((torch.rand((B, 1, N, N), generator=g) - 0.5) * 2 * math.pi).cuda()
+    for W, p_n in villain_modes:
+        n = torch.zeros((B, 2, N, N), dtype=torch.int32, device='cuda')
+        common = dict(kappa=0.5, W=W, interval_phi=math.pi, interval_n=1, p_n=p_n)
+        got = neighborhood_sweeps(phi, n, sweeps=sweeps, generator=torch.Generator().manual_seed(seed + 1),
+                                  **common)
+        draws = KernelSweepDraws(kernel_seed(seed + 1), B=B, N=N, interval_phi=math.pi,
+                                 interval_n=1, p_n=p_n, zmode=W == inf, fdt=torch.float32,
+                                 idt=torch.int32, device='cuda')
+        want = plain_sweeps(phi, n, kappa=0.5, W=W, sweeps=sweeps, draws=draws)
+        err['sweep'] = max(err['sweep'], compare_sweeps(f'N={N} B1 W={W}', got, want))
+        require(villain_invariant(torch, got[1], W), f'N={N} B1 W={W}: dn breaks the constraint')
+        require(float(got[2].sum()) > 0, f'N={N} B1 W={W}: no move accepted')
+        worm_cap = None if W == 1 else cap
+        wgot = classic_worms(got[0], got[1], kappa=0.5, W=W, worms=2, max_worm_moves=worm_cap,
+                             generator=torch.Generator().manual_seed(seed + 2))
+        wwant = plain_worms(got[0], got[1], kappa=0.5, W=W, worms=2, max_worm_moves=worm_cap,
+                            draws=KernelWormDraws(kernel_seed(seed + 2), B=B, N=N, device='cuda'))
+        err['worm'] = max(err['worm'], compare_worms(f'N={N} B2 W={W}', wgot, wwant))
+        require(villain_invariant(torch, wgot[0], W), f'N={N} B2 W={W}: dn breaks the constraint')
+    for W in worldline_ws:
+        vdt = torch.float32 if W == inf else torch.int32
+        m = torch.zeros((B, 2, N, N), dtype=torch.int32, device='cuda')
+        v = torch.zeros((B, 1, N, N), dtype=vdt, device='cuda')
+        common = dict(kappa=0.5, W=W)
+        m, v, _, _ = worldline_sweeps(m, v, sweeps=4, generator=torch.Generator().manual_seed(seed),
+                                      **common)
+        got = worldline_sweeps(m, v, sweeps=sweeps, generator=torch.Generator().manual_seed(seed + 3),
+                               **common)
+        draws = KernelWorldlineSweepDraws(kernel_seed(seed + 3), B=B, N=N,
+                                          interval_v=1.0 if W == inf else 1, interval_t=1,
+                                          interval_w=1, winf=W == inf, fdt=torch.float32,
+                                          idt=torch.int32, device='cuda')
+        want = plain_worldline_sweeps(m, v, sweeps=sweeps, draws=draws, **common)
+        err['worldline_sweep'] = max(err['worldline_sweep'],
+                                     compare_worldline_sweeps(f'N={N} B4 W={W}', got, want))
+        require(divergence_free(torch, got[0]), f'N={N} B4 W={W}: δm ≠ 0')
+        wgot = worldline_worms(got[0], got[1], worms=2, max_worm_moves=cap,
+                               generator=torch.Generator().manual_seed(seed + 4), **common)
+        wwant = plain_worldline_worms(
+            got[0], got[1], worms=2, max_worm_moves=cap,
+            draws=KernelWorldlineWormDraws(kernel_seed(seed + 4), B=B, N=N, device='cuda'),
+            **common)
+        err['worldline_worm'] = max(err['worldline_worm'],
+                                    compare_worms(f'N={N} B5 W={W}', wgot, wwant))
+        require(divergence_free(torch, wgot[0]), f'N={N} B5 W={W}: δm ≠ 0')
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_odd_n(torch, card):
+    """O1: B1, B2, B4 and B5 at odd N against their plain twins on the same
+    draws; their times at N=255 beside N=256 with bounds; and, at even N, the
+    digests of the kernels at commit ef03d56."""
+    from supervillain_tpu_torch.ops.sweep import neighborhood_sweeps, sweep_plan
+    from supervillain_tpu_torch.ops.worldline import worldline_sweeps
+    from supervillain_tpu_torch.ops.worldline_worm import worldline_worms
+    from supervillain_tpu_torch.ops.worm import classic_worms
+
+    inf = float('inf')
+    say(f'== phase O1: the kernels at odd N (N = {", ".join(map(str, ODD_N))}, 256 chains; '
+        f'N = {ODD_LARGE_N}, 512 chains) against their plain twins on the kernels\' draws; '
+        f'times at N = {ODD_LARGE_N} and 256; even-N digests against commit ef03d56\'s')
+    t0 = time.perf_counter()
+    counters = script_counters()
+    for f in counters.values():
+        f.launches = 0
+    err = {}
+    for N in ODD_N:
+        require(sweep_plan(N).regime == 'table', f'N={N}: plan {sweep_plan(N)}')
+        e = odd_same_draws(torch, N, 256, 6, 64, ((1, None), (2, 0.3), (inf, 0.3)),
+                           (1, 2, inf), seed=100 + N)
+        err = {k: max(err.get(k, 0.0), x) for k, x in e.items()}
+    e = odd_same_draws(torch, ODD_LARGE_N, 512, 2, ODD_REPLAY_CAP, ((1, None),), (2,), seed=7)
+    err = {k: max(err[k], x) for k, x in e.items()}
+    launches = {k: f.launches for k, f in counters.items()}
+    say(f'  O1 same draws: launches {launches}; largest errors {err}')
+    require(all(launches[k] > 0 for k in err), f'O1: a kernel never launched: {launches}')
+
+    # Times per call at N = 255 beside N = 256, 512 chains, from warmed states.
+    timing = {}
+    for N in (ODD_LARGE_N, 256):
+        B, thin, cap = 512, 50, 64 * N * N
+        host = torch.Generator().manual_seed(N)
+        phi = ((torch.rand((B, 1, N, N), generator=host) - 0.5) * 2 * math.pi).cuda()
+        n = torch.zeros((B, 2, N, N), dtype=torch.int32, device='cuda')
+        phi, n, _, _ = neighborhood_sweeps(phi, n, kappa=0.5, W=1, interval_phi=math.pi,
+                                           interval_n=1, sweeps=200, generator=host)
+        m = torch.zeros((B, 2, N, N), dtype=torch.int32, device='cuda')
+        v = torch.zeros((B, 1, N, N), dtype=torch.int32, device='cuda')
+        m, v, _, _ = worldline_sweeps(m, v, kappa=0.5, W=2, sweeps=200, generator=host)
+        sweep = call_spread(torch, lambda: neighborhood_sweeps(
+            phi, n, kappa=0.5, W=1, interval_phi=math.pi, interval_n=1, sweeps=thin,
+            generator=host), 5)
+        worm = time_ms(torch, lambda: classic_worms(phi, n, kappa=0.5, W=1, worms=1,
+                                                    max_worm_moves=cap, generator=host), 5)
+        wsweep = call_spread(torch, lambda: worldline_sweeps(m, v, kappa=0.5, W=2, sweeps=thin,
+                                                             generator=host), 5)
+        # B5 call by call: a call lasts as long as its longest worm.
+        worldline_worms(m, v, kappa=0.5, W=2, worms=1, max_worm_moves=cap, generator=host)
+        calls = [timed_call(torch, lambda: worldline_worms(
+            m, v, kappa=0.5, W=2, worms=1, max_worm_moves=cap, generator=host)) for _ in range(3)]
+        wworm = (sum(t for t, _ in calls) / len(calls), calls[-1][1])
+        longest = sum(float(out[2].max()) for _, out in calls)
+        say(f'  [{card}] N={N} worldline_worm: {sum(t for t, _ in calls) * 1e6 / longest!r} ns per '
+            f'move of the longest worm ({longest!r} moves over {len(calls)} calls)')
+        sites = B * N * N
+        moves = worm_moves(worm[1][2], worm[1][3], 1)
+        wmoves = worm_moves(wworm[1][2], wworm[1][3], 1)
+        timing[N] = {
+            'sweep': (float(np.median(sweep[0])),
+                      bound(24 * sites + 12 * B, OPS_VILLAIN_SITE * sites * thin)),
+            'worm': (worm[0], bound(24 * sites + 8 * B, OPS_WORM_MOVE * moves)),
+            'worldline_sweep': (float(np.median(wsweep[0])),
+                                bound(24 * sites + 12 * B, OPS_WORLDLINE_SITE * sites * thin)),
+            'worldline_worm': (wworm[0], bound(24 * sites + 8 * B, OPS_WORM_MOVE * wmoves)),
+        }
+        plan = sweep_plan(N)
+        for k, (ms, (bms, by)) in timing[N].items():
+            what = f'{thin}-sweep call' if 'sweep' in k else 'call (1 worm a chain)'
+            say(f'  [{card}] N={N} ({plan.regime} sweep plan) {k}: {ms!r} ms per {what}, bound '
+                f'{bms!r} ms ({by}), {ms / bms!r}× the bound')
+    digests = even_n_digests(torch)
+    for k, d in digests.items():
+        say(f'  even-N digest {k}: {d} (ef03d56: {EVEN_N_DIGESTS.get(k, "not recorded")})')
+    require(digests == EVEN_N_DIGESTS, 'O1: the kernels\' even-N outputs differ from ef03d56\'s')
+    say(f'  O1: {time.perf_counter() - t0!r} s')
+    return launches, err, timing
+
+
+def phase_odd_scripts(torch, card):
+    """O2: the eager-generator scripts at their own (odd) default N on the card."""
+    C = O2_CONFIGURATIONS
+    runs = [('end-to-end.py', ['--configurations', C]),
+            ('end-to-end.py', ['--action', 'worldline', '--W', 2, '--configurations', C]),
+            ('action-comparison.py', ['--configurations', C]),
+            ('villain-algorithm-comparison.py', ['--configurations', C]),
+            ('worldline-algorithm-comparison.py', ['--configurations', C]),
+            ('no-vortices.py', ['--configurations', C]),
+            ('why-measure-inline.py', ['--configurations', C])]
+    say(f'== phase O2: the eager-generator scripts at their default (odd) N, {C} configurations')
+    results, launches = script_phase(torch, card, 'O2', runs, ('sweep', 'worm', 'worldline_worm'))
+    gate_pulls('O2', eager_script_pulls(runs, results))
     return launches
+
+
+# -- general D: the calculus, Form, and the D ≥ 3 path (no kernel exists there) --
+
+def no_kernel_launched(label, counters):
+    launches = {k: f.launches for k, f in counters.items()}
+    say(f'  {label}: kernel launches {launches} (none exists at D ≥ 3)')
+    require(not any(launches.values()), f'{label}: a D=2 kernel launched at D ≥ 3: {launches}')
+
+
+def phase_calculus_general(torch):
+    """D1: the calculus, sparse functions and Form at D = 3, 4 on the card
+    against the port on the CPU: integer forms bit for bit, float forms
+    (float32 on the card, float64 on the CPU) to 1e-5 relative."""
+    from supervillain_tpu_torch import lattice as tl
+    from supervillain_tpu_torch.ops import Lattice, calculus
+
+    say('== phase D1: calculus, sparse functions and Form at D = 3, 4, card against CPU')
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(41)
+    worst, checked = 0.0, 0
+    for D, N in ((3, 5), (3, 8), (4, 3), (4, 8)):
+        L = Lattice(D, N)
+        for p in range(D + 1):
+            for integer in (True, False):
+                shape = L.form_shape(p)
+                host = torch.as_tensor(rng.integers(-5, 6, shape) if integer
+                                       else rng.normal(size=shape))
+                card = host.to('cuda', torch.int32 if integer else torch.float32)
+                other = torch.as_tensor(rng.integers(-5, 6, L.form_shape(D - p)) if integer
+                                        else rng.normal(size=L.form_shape(D - p)))
+                ops = [('laplacian', lambda f, L=L, p=p: calculus.laplacian(L, p, f)),
+                       ('star', lambda f, L=L, p=p: calculus.star(L, p, f)),
+                       ('push', lambda f, D=D: calculus.push(f, (1, 2) + (0,) * (D - 2))),
+                       ('pull', lambda f, D=D: calculus.pull(f, (0, 1) + (3,) * (D - 2))),
+                       ('wedge', lambda f, L=L, p=p, D=D, o=other: calculus.wedge(
+                           L, p, f, D - p, o.to(f.device, f.dtype)))]
+                if p < D:
+                    ops += [('d', lambda f, L=L, p=p: calculus.d(L, p, f)),
+                            ('coface_sum', lambda f, L=L, p=p: calculus.coface_sum(L, p, f))]
+                if p > 0:
+                    ops += [('delta', lambda f, L=L, p=p: calculus.delta(L, p, f)),
+                            ('face_sum', lambda f, L=L, p=p: calculus.face_sum(L, p, f))]
+                for name, op in ops:
+                    got, want = op(card), op(host)
+                    require(got.is_cuda, f'D1: {name} left the card')
+                    if integer:
+                        require(torch.equal(got.cpu().long(), want),
+                                f'D1: {name} D={D} N={N} p={p} integer forms differ')
+                    else:
+                        scale = max(1.0, float(want.abs().max()))
+                        e = float((got.double().cpu() - want).abs().max()) / scale
+                        worst = max(worst, e)
+                        require(e < 1e-5, f'D1: {name} D={D} N={N} p={p}: {e!r}')
+                    checked += 1
+        # Form (host tier) from a card tensor, and the sparse functions on the card.
+        f1 = torch.as_tensor(rng.integers(-4, 5, L.form_shape(1)), dtype=torch.int32,
+                             device='cuda')
+        form = L.form(1, f1)
+        require(np.array_equal(np.asarray(form.coface_sum()),
+                               calculus.coface_sum(L, 1, f1).cpu().numpy()), 'D1: Form coface')
+        require(np.array_equal(np.asarray(tl.d(form)), calculus.d(L, 1, f1).cpu().numpy()),
+                'D1: Form d')
+        color = L.checkerboarding[0]
+        values = torch.arange(len(color[0]), dtype=torch.int32, device='cuda') - 3
+        got = tl.delta_sparse(L, 2, 0, color, values)
+        require(got.is_cuda and torch.equal(got.cpu(), tl.delta_sparse(L, 2, 0, color,
+                                                                       values.cpu())),
+                'D1: delta_sparse on the card')
+        checked += 3
+    # The topological observables at D=4 (4⁴, W=1), measured and bootstrapped
+    # on the card against the CPU in float64, relative bound MEASURE_RTOL.
+    import supervillain_tpu_torch as sv
+    S = sv.Villain(Lattice(4, 4), 0.4, W=1)
+    cfgs = {'phi': rng.uniform(-math.pi, math.pi, (32, 1) + (4,) * 4),
+            'n': rng.choice([-1, 0, 1], p=[0.2, 0.6, 0.2], size=(32, 4) + (4,) * 4)}
+    names = ('TopologicalChargeDensity', 'TopologicalCharge', 'TopologicalChargeDensitySquared',
+             'TopologicalTwoPoint')
+    values = {}
+    for device in ('cuda', 'cpu'):
+        e = sv.Ensemble(S).from_configurations(sv.Configurations(dict(cfgs)), device=device)
+        boot = sv.Bootstrap(e, draws=40, seed=3)
+        values[device] = {**{n: getattr(e, n) for n in names},
+                          'Bootstrap.Topological_Topological': boot.Topological_Topological}
+    for name in values['cpu']:
+        d = relative_difference(values['cuda'][name], values['cpu'][name])
+        say(f'  D=4 {name}: card against CPU, largest relative difference {d!r}')
+        require(d <= MEASURE_RTOL, f'D1: {name} on the card and the CPU differ by {d!r}')
+        checked += 1
+    require(np.array_equal(values['cuda']['TopologicalCharge'], np.zeros(32)),
+            'D1: Q of a configuration on the torus is not 0')
+    torch.cuda.synchronize()
+    say(f'  D1: {checked} comparisons, largest relative float32 error {worst!r}; '
+        f'{time.perf_counter() - t0!r} s')
+
+
+def read_d4_log(path):
+    """{κ: (ActionDensity, WindingSquared, ⟨Q²⟩·Λ)}, each (mean, error), of a
+    d4-topology log's table."""
+    rows = {}
+    for line in open(path, encoding='utf-8'):
+        head = re.match(r'\s*(\d+\.\d+)\s', line)
+        if head:
+            values = [parse_uncertain(m) for m in _UNCERTAIN.finditer(line[head.end():])]
+            rows[float(head[1])] = tuple(values[:3])
+    return rows
+
+
+#: D2's runs: the shape of each committed d4-topology log.
+D4_RUNS = (('d4-topology-N8-W1.log', ['--N', 8, '--chains', 32, '--steps', 60, '--thin', 2,
+                                      '--cut', 20, '--kappas', 0.2, 0.4, 0.6, '--W', 1]),
+           ('d4-topology-N8-Winf.log', ['--N', 8, '--chains', 32, '--steps', 60, '--thin', 2,
+                                        '--cut', 20, '--kappas', 0.2, 0.4, 0.6, '--W', 'inf']),
+           ('d4-topology-N12-W1.log', ['--N', 12, '--chains', 16, '--steps', 40, '--thin', 2,
+                                       '--cut', 20, '--kappas', 0.4, '--W', 1]))
+
+
+def phase_d4_topology(torch, card):
+    """D2: the ported d4-topology.py on the card at each committed log's shape."""
+    say('== phase D2: d4-topology.py on the card at the committed logs\' shapes')
+    counters = script_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    pulls = {}
+    for log, argv in D4_RUNS:
+        say(f'  -- d4-topology.py {" ".join(str(a) for a in argv)}')
+        t1 = time.perf_counter()
+        results = run_script('d4-topology.py', argv)['results']
+        torch.cuda.synchronize()
+        say(f'  -- {log}: {time.perf_counter() - t1!r} s')
+        reference = read_d4_log(repo_root() / RESULTS / log)
+        require(sorted(results) == sorted(reference), f'D2: κ of {log} not all run')
+        winf = '--W' in argv and argv[argv.index('--W') + 1] == 'inf'
+        for kappa, res in results.items():
+            S, W2, Q2 = reference[kappa]
+            say(f'    κ={kappa}: ActionDensity {shown(res["S"])} (log {shown(S)}), '
+                f'WindingSquared {shown(res["W2"])} (log {shown(W2)}), ⟨Q²⟩·Λ '
+                f'{shown(res["Q2V"])} (log {shown(Q2)}), {res["su_per_s"]!r} su/s, '
+                f'{res["seconds"]!r} s')
+            pulls[f'{log} κ={kappa} ActionDensity'] = signed_pull(res['S'], S)
+            if winf:
+                require(res['W2'][0] == 0.0 and res['Q2V'][0] == 0.0,
+                        f'D2: W=∞ needs WindingSquared ≡ 0 and Q ≡ 0, got {res}')
+            else:
+                pulls[f'{log} κ={kappa} WindingSquared'] = signed_pull(res['W2'], W2)
+                pulls[f'{log} κ={kappa} ⟨Q²⟩·Λ'] = signed_pull(res['Q2V'], Q2)
+    # At W=∞, n = dz + a harmonic winding: the φ modes are free Gaussians, so
+    # ⟨S⟩/Λ = (Λ − 1)/(2Λ) up to winding sectors suppressed by e^{-2π²κN^{D−2}}.
+    import supervillain_tpu_torch as sv
+    from supervillain_tpu_torch.generators import villain as gv
+    L = sv.Lattice(4, 8)
+    S = sv.Villain(L, 0.4, W=float('inf'))
+    chains, steps, cut = 128, 240, 80
+    t1 = time.perf_counter()
+    fleet = sv.sample_fleet(S, gv.Hammer(S), chains=chains, steps=steps, thin=1, seed=47,
+                            device='cuda')
+    means = np.asarray(fleet.pooled_ensemble(cut).ActionDensity,
+                       dtype=np.float64).reshape(-1, chains).mean(axis=0)
+    exact = (L.sites - 1) / (2 * L.sites)
+    pulls['W=∞ equipartition, ⟨ActionDensity⟩ − (Λ−1)/(2Λ)'] = signed_pull(
+        (means.mean(), means.std(ddof=1) / math.sqrt(chains)), (exact, 0.0))
+    say(f'    W=∞, κ=0.4, {chains} chains × {steps} steps (cut {cut}): ⟨ActionDensity⟩ '
+        f'{means.mean()!r} ± {means.std(ddof=1) / math.sqrt(chains)!r} against the exact '
+        f'{exact!r}; {time.perf_counter() - t1!r} s')
+    no_kernel_launched('D2', counters)
+    gate_pulls('D2', pulls)
+    say(f'  D2: {time.perf_counter() - t0!r} s (card: {card})')
+
+
+def phase_worldline_general(torch, card):
+    """D3: the generic Worldline Hammer at D = 3 and 4 (N=8, κ=0.2, W=1, where
+    its worm is short: at W=2, or κ=0.3 at D=4, a worm is thousands of moves,
+    each a host round trip at D ≥ 3) on the card: δm = 0 bit for bit on every kept
+    draw, finite ActionDensity, held in distribution against the port's same
+    fleet on the CPU (per-chain means, |pull| < 4)."""
+    import supervillain_tpu_torch as sv
+    from supervillain_tpu_torch.generators import worldline as gw
+    from supervillain_tpu_torch.ops import calculus
+
+    say('== phase D3: the Worldline Hammer at D = 3, 4 (N=8, κ=0.2, W=1), card against CPU')
+    counters = script_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    pulls = {}
+    for D in (3, 4):
+        S = sv.Worldline(sv.Lattice(D, 8), 0.2, W=1)
+        means = {}
+        for device, chains in (('cuda', 32), ('cpu', 8)):
+            t1 = time.perf_counter()
+            fleet = sv.sample_fleet(S, gw.Hammer(S, fleet=True), chains=chains, steps=16,
+                                    thin=1, seed=D, device=device)
+            seconds = time.perf_counter() - t1
+            m = fleet.columns['m']
+            dm = calculus.delta(S.Lattice, 1, torch.as_tensor(m.reshape((-1,) + m.shape[2:])))
+            require(bool((dm == 0).all()), f'D3: δm ≠ 0 at D={D} on the {device}')
+            e = fleet.pooled_ensemble(4)
+            a = np.asarray(e.ActionDensity)
+            require(np.isfinite(a).all(), f'D3: non-finite ActionDensity at D={D}')
+            means[device] = a.reshape(-1, chains).mean(axis=0)
+            say(f'  [{card if device == "cuda" else "cpu"}] D={D}, {chains} chains × 16 steps: '
+                f'{seconds!r} s, ActionDensity {means[device].mean()!r} ± '
+                f'{means[device].std(ddof=1) / math.sqrt(chains)!r}')
+        c, h = means['cuda'], means['cpu']
+        pulls[f'D={D} ActionDensity card − CPU'] = signed_pull(
+            (c.mean(), c.std(ddof=1) / math.sqrt(len(c))), (h.mean(), h.std(ddof=1) / math.sqrt(len(h))))
+    no_kernel_launched('D3', counters)
+    gate_pulls('D3', pulls)
+    say(f'  D3: {time.perf_counter() - t0!r} s')
+
+
+def phase_dimension(torch, card):
+    """D4: benchmark/dimension.py at D=4, N=8, 32 to 8192 chains."""
+    from supervillain_tpu_torch.benchmark import dimension
+
+    say('== phase D4: benchmark/dimension.py saturation curve at D=4, N=8 on the card')
+    counters = script_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    curve = dimension.saturation_curve(D=4, N=8, chain_counts=(32, 128, 512, 2048, 8192),
+                                       thin=16, reps=3, samples=1, device='cuda')
+    require(curve and all(r > 0 for r in curve.values()), f'D4: bad curve {curve}')
+    for k, r in curve.items():
+        say(f'  [{card}] D=4 N=8 {k}: {r!r} site-updates/s (eager NeighborhoodUpdate)')
+    no_kernel_launched('D4', counters)
+    say(f'  D4: {time.perf_counter() - t0!r} s')
+    return curve
 
 
 def main():
@@ -2047,6 +2581,12 @@ def main():
         phase_scan_w1, phase_scan_w2, phase_scan_l256, phase_pod_fleet, phase_self_dual,
         phase_winf_line, phase_small_scripts)]
     scripts = {k: sum(s[k] for s in scripts) for k in scripts[0]}
+    odd_launches, odd_err, odd_timing = phase_odd_n(torch, card)
+    odd_scripts = phase_odd_scripts(torch, card)
+    phase_calculus_general(torch)
+    phase_d4_topology(torch, card)
+    phase_worldline_general(torch, card)
+    phase_dimension(torch, card)
     launches |= w_launches
     ms |= w_ms
     plain_ms |= w_plain_ms
@@ -2063,16 +2603,27 @@ def main():
         'worldline_hammer': ('supervillain_tpu_torch/ops/worldline_hammer.py',
                              'supervillain_tpu/ops/pallas_worldline_hammer.py:412'),
     }
+    def odd(name, N):
+        t = odd_timing[N].get(name)
+        return None if t is None else {'ms': t[0], 'bound_ms': t[1][0], 'bound_by': t[1][1]}
+
     report = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': src, 'replaces': replaces,
          'launches': launches[name],
          'launches_by_path': {'sample_fused_fleet (phases 6, W4)': launches[name],
                               'sample_fleet, exact cases (G1)': exact.get(name, 0),
                               'sample_fleet Hammer(fleet=True), L=256 (G2b)': general.get(name, 0),
-                              'the ported scripts (E2-E8)': scripts[name]},
-         'max_abs_err': err[name], 'ms': ms[name],
-         'plain_ms': plain_ms[name], 'bound_ms': bounds[name][0], 'bound_by': bounds[name][1],
-         'library_ms': None}
+                              'the ported scripts at even N (E2-E8)': scripts[name],
+                              'odd N against the plain twins (O1)': odd_launches.get(name, 0),
+                              'the scripts at their odd default N (O2)': odd_scripts[name],
+                              'D >= 3 (D2-D4)': 0},
+         'launches_by_parity': {'even': launches[name] + exact.get(name, 0)
+                                + general.get(name, 0) + scripts[name],
+                                'odd': odd_launches.get(name, 0) + odd_scripts[name]},
+         'max_abs_err': max(err[name], odd_err.get(name, 0.0)),
+         'ms': ms[name], 'plain_ms': plain_ms[name], 'bound_ms': bounds[name][0],
+         'bound_by': bounds[name][1], 'library_ms': None,
+         'at_N255': odd(name, ODD_LARGE_N), 'at_N256_same_run': odd(name, 256)}
         for name, (src, replaces) in sources.items()]}
     say(f'card: {card}')
     say(json.dumps(report))

@@ -7,9 +7,11 @@
 // (zero-inflated when p_n >= 0), or at W = ∞ (W == 0 here) an integer Δz with
 // Δn = d(Δz); ΔS = Σ_links (κ/2)·cr·(2r + cr) with cr the change of the link
 // residual r = dφ − 2πn; Metropolis on u < exp(−ΔS).  Draws: Philox keyed by
-// the seed, countered by (site t·N + x, chain, pass 2·sweep + color, k).
+// the seed, countered by (site t·N + x, chain, pass n_colors·sweep + color, k),
+// with n_colors = 2 at even N and 4 at odd N.
 //
-// Two regimes, chosen on the host from N alone (ops/sweep.py sweep_plan).
+// Three regimes, chosen on the host from N alone (ops/sweep.py sweep_plan):
+// resident and streaming at even N, and at odd N a colour table.
 //
 // Resident (N ≤ 304): a chain needs 20 B a site (φ f32, n 2×i32, r 2×f32),
 // 1.25 MB at L=256, more than one block's 227 KB of shared memory but not
@@ -51,7 +53,17 @@
 // Same-color sites of a row sit two words apart, so a warp uses half of each
 // 32-byte sector it loads; B4's color planes would fix that (later work).
 //
-// Both regimes rebuild r from (φ, n) at the start of every call, as the TPU
+// Colour table (odd N): a torus of odd side is not two-colourable, so the
+// lattice colours it with 4 colours (ops/lattice.py checkerboard_masks: pairs
+// of opposite quadrants by parity), no two neighbours alike.  The streaming
+// regime then runs one launch per colour over every site of the chain, a site
+// reading its colour from an int8 table uploaded once and idling unless it is
+// the pass's.  Same-colour sites still share no link, so nothing races; the
+// site's 4 neighbours wrap by comparison, as init_residual and inline_sums do
+// at any N.  Half to three quarters of the threads of a pass idle: the simple
+// design, left for later work to compact.
+//
+// Every regime rebuilds r from (φ, n) at the start of every call, as the TPU
 // kernel does at every launch, so its f32 drift is bounded by one call, and
 // both run the same arithmetic on the same draws: they give the same φ, n and
 // accepted counts bit for bit.
@@ -189,6 +201,59 @@ __global__ void color_pass(float* __restrict__ phi, int* __restrict__ n, float* 
     }
     // Every lane reaches here; lanes of one chain add their accepts once.
     const unsigned peers = __match_any_sync(0xffffffffu, chain);
+    const unsigned votes = __ballot_sync(0xffffffffu, accept);
+    if (active && (int)(threadIdx.x & 31) == __ffs(peers) - 1) {
+        const int c = __popc(votes & peers);
+        if (c) atomicAdd(accepted + chain, c);
+    }
+}
+
+// color_pass at any N: one thread per (chain, site), the site's colour from
+// colors (N·N int8); a thread whose site is not of `color` only joins the
+// warp's accept count.
+__global__ void color_pass_table(float* __restrict__ phi, int* __restrict__ n,
+                                 float* __restrict__ r, int* __restrict__ accepted,
+                                 const int8_t* __restrict__ colors, int B, int N, int color,
+                                 uint32_t pass, uint2 key, float kappa, int W, float interval_phi,
+                                 int interval_n, float p_n) {
+    const long long NN = (long long)N * N;
+    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    int chain = -1;
+    bool active = idx < B * NN;
+    bool accept = false;
+    if (active) {
+        chain = (int)(idx / NN);
+        const int s = (int)(idx - chain * NN);
+        active = colors[s] == color;
+        if (active) {
+            const int t = s / N, x = s - t * N;
+            const int tm = t == 0 ? N - 1 : t - 1, xm = x == 0 ? N - 1 : x - 1;
+            const int lb0 = tm * N + x, lb1 = t * N + xm;
+
+            float* ph = phi + chain * NN;
+            int* n0 = n + chain * 2 * NN;
+            int* n1 = n0 + NN;
+            float* r0 = r + chain * 2 * NN;
+            float* r1 = r0 + NN;
+
+            const float rf0 = r0[s], rb0 = r0[lb0], rf1 = r1[s], rb1 = r1[lb1];
+            const Move m = propose((uint32_t)s, (uint32_t)chain, pass, key, kappa, W,
+                                   interval_phi, interval_n, p_n, rf0, rb0, rf1, rb1);
+            accept = m.accept;
+            if (accept) {
+                ph[s] += m.dphi;
+                n0[s] += __float2int_rn(m.cf0);
+                n0[lb0] += __float2int_rn(m.cb0);
+                n1[s] += __float2int_rn(m.cf1);
+                n1[lb1] += __float2int_rn(m.cb1);
+                r0[s] = rf0 + m.crf0;
+                r0[lb0] = rb0 + m.crb0;
+                r1[s] = rf1 + m.crf1;
+                r1[lb1] = rb1 + m.crb1;
+            }
+        }
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, active ? chain : -1);
     const unsigned votes = __ballot_sync(0xffffffffu, accept);
     if (active && (int)(threadIdx.x & 31) == __ffs(peers) - 1) {
         const int c = __popc(votes & peers);
@@ -510,14 +575,17 @@ extern "C" {
 
 const char* sv_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Copies (phi_in, n_in) into (phi, n), then runs `sweeps` two-color sweeps in
-// place.  accepted (B,) int32 receives the accepted site updates; sums (B, 2)
-// double receives Σ_sweeps Σ r² and Σ_sweeps Σ (dn)².  r (B, 2, N, N) f32 is
-// scratch.  W == 0 selects z-mode (W = ∞); p_n < 0 means no zero inflation.
+// Copies (phi_in, n_in) into (phi, n), then runs `sweeps` sweeps in place:
+// two-color passes when colors is null (N even), else one pass per color of
+// the table colors (N·N int8, values 0..n_colors-1).  accepted (B,) int32
+// receives the accepted site updates; sums (B, 2) double receives Σ_sweeps Σ r²
+// and Σ_sweeps Σ (dn)².  r (B, 2, N, N) f32 is scratch.  W == 0 selects z-mode
+// (W = ∞); p_n < 0 means no zero inflation.
 int sv_sweeps(const float* phi_in, const int* n_in, float* phi, int* n, float* r,
-              int* accepted, double* sums, int B, int N, int sweeps, float kappa, int W,
-              float interval_phi, int interval_n, float p_n, unsigned long long seed,
-              void* stream_ptr) {
+              int* accepted, double* sums, const int8_t* colors, int n_colors, int B, int N,
+              int sweeps, float kappa, int W, float interval_phi, int interval_n, float p_n,
+              unsigned long long seed, void* stream_ptr) {
+    if (colors == nullptr && (N % 2 != 0 || n_colors != 2)) return cudaErrorInvalidValue;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     const size_t NN = (size_t)N * N;
     cudaError_t e;
@@ -532,11 +600,19 @@ int sv_sweeps(const float* phi_in, const int* n_in, float* phi, int* n, float* r
 
     const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
     const unsigned pass_blocks = (unsigned)((B * NN / 2 + threads - 1) / threads);
+    const unsigned table_blocks = (unsigned)((B * NN + threads - 1) / threads);
     for (int sweep = 0; sweep < sweeps; ++sweep) {
-        for (int color = 0; color < 2; ++color) {
-            color_pass<<<pass_blocks, threads, 0, stream>>>(
-                phi, n, r, accepted, B, N, color, (uint32_t)(2 * sweep + color), key, kappa, W,
-                interval_phi, interval_n, p_n);
+        for (int color = 0; color < n_colors; ++color) {
+            const uint32_t pass = (uint32_t)(n_colors * sweep + color);
+            if (colors == nullptr) {
+                color_pass<<<pass_blocks, threads, 0, stream>>>(
+                    phi, n, r, accepted, B, N, color, pass, key, kappa, W, interval_phi,
+                    interval_n, p_n);
+            } else {
+                color_pass_table<<<table_blocks, threads, 0, stream>>>(
+                    phi, n, r, accepted, colors, B, N, color, pass, key, kappa, W, interval_phi,
+                    interval_n, p_n);
+            }
             if ((e = cudaGetLastError())) return e;
         }
         inline_sums<<<B, kSumThreads, 0, stream>>>(r, n, sums, N);

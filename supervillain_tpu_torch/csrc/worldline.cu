@@ -16,7 +16,7 @@
 // and the residual u 512 KB, far above a block's 227 KB of shared memory, so
 // the state stays in device memory and every pass streams it.
 //
-// Design: a call works on v, the residual u and two integer tallies in a
+// Design (even N): a call works on v, the residual u and two integer tallies in a
 // layout private to the kernel, built by one launch at the start and turned
 // back into the public (m, v) by one at the end.  Each field is split by site
 // color c = (t + x) & 1 into planes of N rows of N/2 entries, site (t, x) at
@@ -44,7 +44,17 @@
 // (at W = ∞, where v is a float, too).  The double sums' order differs from
 // torch.sum's, so a same-draws comparison with the plain twin can part on a
 // wrapping decision.  Draws: Philox keyed by the seed's Worldline key,
-// countered by (plaquette or cycle, chain, 6·sweep + pass, 0).
+// countered by (plaquette or cycle, chain, (2·n_colors + 2)·sweep + pass, 0),
+// pass counting the vortex colors, the coexact colors, then the two wrapping
+// directions: 6·sweep + pass at even N.
+//
+// Odd N: a torus of odd side needs 4 plaquette colors (ops/lattice.py
+// checkerboard_masks), so the color planes above do not exist.  The call then
+// keeps v, T and u in the public layout (the same launches, indexed t·N + x),
+// and each plaquette pass is one thread per plaquette of a row, reading its
+// color from an int8 table uploaded once and idling unless it is the pass's;
+// its links wrap by comparison.  The wrapping pass and the inline sums are the
+// even-N ones over the public layout.
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
@@ -69,6 +79,13 @@ __device__ __forceinline__ int private_index(int t, int x, int N) {
     return ((t + x) & 1) * (N * N / 2) + t * (N / 2) + (x >> 1);
 }
 
+// Index of site (t, x) in one chain's field of the call's layout: private at
+// even N, public (kPublic) at odd N.
+template <bool kPublic>
+__device__ __forceinline__ int field_index(int t, int x, int N) {
+    return kPublic ? t * N + x : private_index(t, x, N);
+}
+
 // Adds the block's accepted proposals (every thread passes its own) to *accepted.
 __device__ __forceinline__ void count_block(int* accepted, int mine) {
     __shared__ int per_warp[kRows];
@@ -87,8 +104,8 @@ __device__ __forceinline__ double warp_total(double a) {
     return __shfl_sync(kAll, a, 0);
 }
 
-// Public v into the private layout, and the residual u_mu = m_mu − (δv)_mu/_W.
-template <typename V>
+// Public v into the call's layout, and the residual u_mu = m_mu − (δv)_mu/_W.
+template <typename V, bool kPublic>
 __global__ void __launch_bounds__(kLanes * kRows) to_private(const int* __restrict__ m,
                                                              const V* __restrict__ v,
                                                              V* __restrict__ vp,
@@ -100,18 +117,18 @@ __global__ void __launch_bounds__(kLanes * kRows) to_private(const int* __restri
     const int* mc = m + chain * 2 * NN;
     const V* vc = v + chain * NN;
     for (int x = threadIdx.x; x < N; x += kLanes) {
-        const int q = private_index(t, x, N);
+        const int q = field_index<kPublic>(t, x, N);
         vp[chain * NN + q] = vc[t * N + x];
         u[chain * 2 * NN + q] = link_residual(mc, vc, 0, t, x, N, inv_w);
         u[chain * 2 * NN + NN + q] = link_residual(mc, vc, 1, t, x, N, inv_w);
     }
 }
 
-// The call's result in the public layout: v from the private layout, and
-// m = m_in + δT + the wrapping shifts, where T (private layout) sums the
+// The call's result in the public layout: v from the call's layout, and
+// m = m_in + δT + the wrapping shifts, where T (call's layout) sums the
 // accepted coexact changes t of each plaquette: plaquette (t, x) adds T to
 // ℓ0[t,x] and ℓ1[t+1,x] and subtracts it from ℓ0[t,x+1] and ℓ1[t,x].
-template <typename V>
+template <typename V, bool kPublic>
 __global__ void __launch_bounds__(kLanes * kRows) to_public(const int* __restrict__ m_in,
                                                             const V* __restrict__ vp,
                                                             const int* __restrict__ tp,
@@ -125,13 +142,13 @@ __global__ void __launch_bounds__(kLanes * kRows) to_public(const int* __restric
     const int* shift = shifts + chain * 2 * N;
     const int tb = t == 0 ? N - 1 : t - 1;
     for (int x = threadIdx.x; x < N; x += kLanes) {
-        const int here = tc[private_index(t, x, N)];
-        const int left = tc[private_index(t, x == 0 ? N - 1 : x - 1, N)];
-        const int below = tc[private_index(tb, x, N)];
+        const int here = tc[field_index<kPublic>(t, x, N)];
+        const int left = tc[field_index<kPublic>(t, x == 0 ? N - 1 : x - 1, N)];
+        const int below = tc[field_index<kPublic>(tb, x, N)];
         const int s0 = chain * 2 * NN + t * N + x;
         m[s0] = m_in[s0] + here - left + shift[x];
         m[s0 + NN] = m_in[s0 + NN] - here + below + shift[N + t];
-        v[chain * NN + t * N + x] = vp[chain * NN + private_index(t, x, N)];
+        v[chain * NN + t * N + x] = vp[chain * NN + field_index<kPublic>(t, x, N)];
     }
 }
 
@@ -216,12 +233,69 @@ __global__ void __launch_bounds__(kLanes * kRows) plaquette_pass(
     count_block(accepted + chain, count);
 }
 
+// A plaquette pass at any N over the public layout: one thread per
+// plaquette of a row, acting where colors (N·N int8) says the plaquette is of
+// `color`.  The same proposal, ΔS and rounding as plaquette_pass.
+template <bool kVortex, typename V>
+__global__ void __launch_bounds__(kLanes * kRows) plaquette_pass_table(
+    V* __restrict__ vp, int* __restrict__ tp, float* __restrict__ u, int* __restrict__ accepted,
+    const int8_t* __restrict__ colors, int N, int color, uint32_t pass, uint2 key, float inv2k,
+    float inv_w, float interval_v, int interval_t) {
+    using F = std::conditional_t<kVortex, V, int>;
+    const int t = blockIdx.x * kRows + threadIdx.y, chain = blockIdx.y;
+    int count = 0;
+    if (t < N) {
+        const int NN = N * N, tn = t + 1 == N ? 0 : t + 1;
+        float* u0 = u + chain * 2 * NN;
+        float* u1 = u0 + NN;
+        F* fc;
+        if constexpr (kVortex) {
+            fc = vp + chain * NN;
+        } else {
+            fc = tp + chain * NN;
+        }
+        for (int x = threadIdx.x; x < N; x += kLanes) {
+            const int s = t * N + x;
+            if (colors[s] != color) continue;
+            // The plaquette's links ℓ0[t,x], ℓ0[t,x+1], ℓ1[t,x], ℓ1[t+1,x].
+            const int ib = t * N + (x + 1 == N ? 0 : x + 1), id = tn * N + x;
+            const float ua = u0[s], ub = u0[ib], uc = u1[s], ud = u1[id];
+            const uint4 w = philox4x32_10(make_uint4((uint32_t)s, (uint32_t)chain, pass, 0u), key);
+            F change;
+            float du;
+            if constexpr (!kVortex) {
+                change = draw_nonzero(w.x, interval_t);
+                du = (float)change;
+            } else if constexpr (std::is_same<V, float>::value) {
+                change = (2.f * u24(w.x) - 1.f) * interval_v;
+                du = -__fmul_rn(change, inv_w);
+            } else {
+                change = draw_nonzero(w.x, (int)interval_v);
+                du = -__fmul_rn((float)change, inv_w);
+            }
+            const float dS = __fadd_rn(
+                __fadd_rn(link_term(inv2k, uc, -du), link_term(inv2k, ud, du)),
+                __fadd_rn(link_term(inv2k, ua, du), link_term(inv2k, ub, -du)));
+            if (metropolis(u24(w.y), dS)) {
+                u0[s] = __fadd_rn(ua, du);
+                u0[ib] = __fadd_rn(ub, -du);
+                u1[s] = __fadd_rn(uc, -du);
+                u1[id] = __fadd_rn(ud, du);
+                fc[s] = fc[s] + change;
+                ++count;
+            }
+        }
+    }
+    count_block(accepted + chain, count);
+}
+
 // The wrapping pass.  Blocks below `row_blocks` take 8 row cycles (μ = 1, Δm
 // on m_1 along row t = k, one warp each); the others take 32 column cycles
 // (μ = 0, Δm on m_0 along column x = k, one lane of each warp per column).
 // An accepted shift changes u along the cycle and adds to shifts[chain][μ·N + k]
 // (m follows at the end of the call); each cycle adds Σu² after its decision
-// to squares[chain][μ·N + k].
+// to squares[chain][μ·N + k].  kPublic: u in the public layout (odd N).
+template <bool kPublic>
 __global__ void __launch_bounds__(kLanes * kRows) wrapping_pass(
     float* __restrict__ u, int* __restrict__ shifts, int* __restrict__ accepted,
     double* __restrict__ squares, int N, int row_blocks, uint32_t pass0, uint2 key, float inv2k,
@@ -238,25 +312,40 @@ __global__ void __launch_bounds__(kLanes * kRows) wrapping_pass(
             const uint4 w = philox4x32_10(make_uint4((uint32_t)t, (uint32_t)chain, pass0 + 1u, 0u), key);
             const int c = draw_nonzero(w.x, interval_w);
             const float cf = (float)c;
-            // Row t of ℓ1 is row t of both color planes of u_1.
-            float* row0 = uc + NN + t * hN;
-            float* row1 = row0 + NN / 2;
-            double dS = 0.0;
-            for (int j = lane; j < hN; j += kLanes) {
-                dS += (double)link_term(inv2k, row0[j], cf);
-                dS += (double)link_term(inv2k, row1[j], cf);
-            }
-            const bool accept = metropolis(u24(w.y), (float)warp_total(dS));
-            double s = 0.0;
-            for (int j = lane; j < hN; j += kLanes) {
-                float a = row0[j], b = row1[j];
-                if (accept) {
-                    a = __fadd_rn(a, cf);
-                    b = __fadd_rn(b, cf);
-                    row0[j] = a;
-                    row1[j] = b;
+            double dS = 0.0, s = 0.0;
+            bool accept;
+            if constexpr (kPublic) {
+                // Row t of ℓ1: N consecutive entries of u_1.
+                float* row = uc + NN + t * N;
+                for (int x = lane; x < N; x += kLanes) dS += (double)link_term(inv2k, row[x], cf);
+                accept = metropolis(u24(w.y), (float)warp_total(dS));
+                for (int x = lane; x < N; x += kLanes) {
+                    float a = row[x];
+                    if (accept) {
+                        a = __fadd_rn(a, cf);
+                        row[x] = a;
+                    }
+                    s += (double)a * a;
                 }
-                s += (double)a * a + (double)b * b;
+            } else {
+                // Row t of ℓ1 is row t of both color planes of u_1.
+                float* row0 = uc + NN + t * hN;
+                float* row1 = row0 + NN / 2;
+                for (int j = lane; j < hN; j += kLanes) {
+                    dS += (double)link_term(inv2k, row0[j], cf);
+                    dS += (double)link_term(inv2k, row1[j], cf);
+                }
+                accept = metropolis(u24(w.y), (float)warp_total(dS));
+                for (int j = lane; j < hN; j += kLanes) {
+                    float a = row0[j], b = row1[j];
+                    if (accept) {
+                        a = __fadd_rn(a, cf);
+                        b = __fadd_rn(b, cf);
+                        row0[j] = a;
+                        row1[j] = b;
+                    }
+                    s += (double)a * a + (double)b * b;
+                }
             }
             s = warp_total(s);
             if (lane == 0) {
@@ -280,7 +369,7 @@ __global__ void __launch_bounds__(kLanes * kRows) wrapping_pass(
         double dS = 0.0;
         if (active) {
             for (int t = warp; t < N; t += kRows) {
-                dS += (double)link_term(inv2k, uc[private_index(t, x, N)], cf);
+                dS += (double)link_term(inv2k, uc[field_index<kPublic>(t, x, N)], cf);
             }
         }
         part[warp][lane] = dS;
@@ -292,7 +381,7 @@ __global__ void __launch_bounds__(kLanes * kRows) wrapping_pass(
         double s = 0.0;
         if (active) {
             for (int t = warp; t < N; t += kRows) {
-                const int q = private_index(t, x, N);
+                const int q = field_index<kPublic>(t, x, N);
                 float a = uc[q];
                 if (accept) {
                     a = __fadd_rn(a, cf);
@@ -326,9 +415,11 @@ __global__ void __launch_bounds__(kLanes) sum_squares(const double* __restrict__
 
 template <typename V>
 int worldline_sweeps(const int* m_in, const V* v_in, int* m, V* v, V* vp, int* tp, float* u,
-                     int* shifts, double* squares, int* accepted, double* sums, int B, int N,
-                     int sweeps, float inv2k, float inv_w, float interval_v, int interval_t,
-                     int interval_w, unsigned long long seed, void* stream_ptr) {
+                     int* shifts, double* squares, int* accepted, double* sums,
+                     const int8_t* colors, int n_colors, int B, int N, int sweeps, float inv2k,
+                     float inv_w, float interval_v, int interval_t, int interval_w,
+                     unsigned long long seed, void* stream_ptr) {
+    if (colors == nullptr && (N % 2 != 0 || n_colors != 2)) return cudaErrorInvalidValue;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     cudaError_t e;
     if ((e = cudaMemsetAsync(accepted, 0, B * sizeof(int), stream))) return e;
@@ -339,29 +430,60 @@ int worldline_sweeps(const int* m_in, const V* v_in, int* m, V* v, V* vp, int* t
     const dim3 block(kLanes, kRows);
     const int row_blocks = (N + kRows - 1) / kRows, column_blocks = (N + kLanes - 1) / kLanes;
     const dim3 rows(row_blocks, B), cycles(row_blocks + column_blocks, B);
-    to_private<V><<<rows, block, 0, stream>>>(m_in, v_in, vp, u, N, inv_w);
+    const bool table = colors != nullptr;
+    if (table) {
+        to_private<V, true><<<rows, block, 0, stream>>>(m_in, v_in, vp, u, N, inv_w);
+    } else {
+        to_private<V, false><<<rows, block, 0, stream>>>(m_in, v_in, vp, u, N, inv_w);
+    }
     if ((e = cudaGetLastError())) return e;
 
     const uint2 key = sv::worldline_key(seed);
+    const uint32_t per_sweep = 2u * (uint32_t)n_colors + 2u;
     for (int sweep = 0; sweep < sweeps; ++sweep) {
-        const uint32_t pass0 = 6u * (uint32_t)sweep;
-        for (int color = 0; color < 2; ++color) {
-            plaquette_pass<true, V><<<rows, block, 0, stream>>>(
-                vp, tp, u, accepted, N, color, pass0 + color, key, inv2k, inv_w, interval_v,
-                interval_t);
+        const uint32_t pass0 = per_sweep * (uint32_t)sweep;
+        for (int color = 0; color < n_colors; ++color) {
+            if (table) {
+                plaquette_pass_table<true, V><<<rows, block, 0, stream>>>(
+                    vp, tp, u, accepted, colors, N, color, pass0 + color, key, inv2k, inv_w,
+                    interval_v, interval_t);
+            } else {
+                plaquette_pass<true, V><<<rows, block, 0, stream>>>(
+                    vp, tp, u, accepted, N, color, pass0 + color, key, inv2k, inv_w, interval_v,
+                    interval_t);
+            }
             if ((e = cudaGetLastError())) return e;
         }
-        for (int color = 0; color < 2; ++color) {
-            plaquette_pass<false, V><<<rows, block, 0, stream>>>(
-                vp, tp, u, accepted, N, color, pass0 + 2 + color, key, inv2k, inv_w, interval_v,
-                interval_t);
+        for (int color = 0; color < n_colors; ++color) {
+            const uint32_t pass = pass0 + (uint32_t)(n_colors + color);
+            if (table) {
+                plaquette_pass_table<false, V><<<rows, block, 0, stream>>>(
+                    vp, tp, u, accepted, colors, N, color, pass, key, inv2k, inv_w, interval_v,
+                    interval_t);
+            } else {
+                plaquette_pass<false, V><<<rows, block, 0, stream>>>(
+                    vp, tp, u, accepted, N, color, pass, key, inv2k, inv_w, interval_v,
+                    interval_t);
+            }
             if ((e = cudaGetLastError())) return e;
         }
-        wrapping_pass<<<cycles, block, 0, stream>>>(u, shifts, accepted, squares, N, row_blocks,
-                                                     pass0 + 4, key, inv2k, interval_w);
+        const uint32_t wrap0 = pass0 + 2u * (uint32_t)n_colors;
+        if (table) {
+            wrapping_pass<true><<<cycles, block, 0, stream>>>(u, shifts, accepted, squares, N,
+                                                              row_blocks, wrap0, key, inv2k,
+                                                              interval_w);
+        } else {
+            wrapping_pass<false><<<cycles, block, 0, stream>>>(u, shifts, accepted, squares, N,
+                                                               row_blocks, wrap0, key, inv2k,
+                                                               interval_w);
+        }
         if ((e = cudaGetLastError())) return e;
     }
-    to_public<V><<<rows, block, 0, stream>>>(m_in, vp, tp, shifts, m, v, N);
+    if (table) {
+        to_public<V, true><<<rows, block, 0, stream>>>(m_in, vp, tp, shifts, m, v, N);
+    } else {
+        to_public<V, false><<<rows, block, 0, stream>>>(m_in, vp, tp, shifts, m, v, N);
+    }
     if ((e = cudaGetLastError())) return e;
     sum_squares<<<B, kLanes, 0, stream>>>(squares, sums, N);
     return cudaGetLastError();
@@ -374,27 +496,30 @@ extern "C" {
 // Runs `sweeps` worldline sweeps from (m_in, v_in) and writes the result to
 // (m, v).  accepted (B,) int32 receives the accepted proposals; sums (B,)
 // double receives Σ_sweeps Σ u² after each sweep.  Scratch: vp (B, 1, N, N)
-// like v, tp (B, 1, N, N) int32 and u (B, 2, N, N) f32 in the private layout,
-// shifts (B, 2N) int32 and squares (B, 2N) double.  v is int32 (finite W);
-// the _winf entry takes float32 v (W = ∞).  B may be at most 65535 (the
-// grid's y extent).
+// like v, tp (B, 1, N, N) int32 and u (B, 2, N, N) f32 in the call's layout,
+// shifts (B, 2N) int32 and squares (B, 2N) double.  colors is null at even N
+// (two colors, private layout), else the plaquettes' colors (N·N int8, values
+// 0..n_colors-1; public layout).  v is int32 (finite W); the _winf entry takes
+// float32 v (W = ∞).  B may be at most 65535 (the grid's y extent).
 int sv_worldline_sweeps(const int* m_in, const int* v_in, int* m, int* v, int* vp, int* tp,
-                        float* u, int* shifts, double* squares, int* accepted, double* sums, int B,
-                        int N, int sweeps, float inv2k, float inv_w, float interval_v,
-                        int interval_t, int interval_w, unsigned long long seed, void* stream) {
-    return worldline_sweeps<int>(m_in, v_in, m, v, vp, tp, u, shifts, squares, accepted, sums, B,
-                                 N, sweeps, inv2k, inv_w, interval_v, interval_t, interval_w, seed,
-                                 stream);
+                        float* u, int* shifts, double* squares, int* accepted, double* sums,
+                        const int8_t* colors, int n_colors, int B, int N, int sweeps, float inv2k,
+                        float inv_w, float interval_v, int interval_t, int interval_w,
+                        unsigned long long seed, void* stream) {
+    return worldline_sweeps<int>(m_in, v_in, m, v, vp, tp, u, shifts, squares, accepted, sums,
+                                 colors, n_colors, B, N, sweeps, inv2k, inv_w, interval_v,
+                                 interval_t, interval_w, seed, stream);
 }
 
 int sv_worldline_sweeps_winf(const int* m_in, const float* v_in, int* m, float* v, float* vp,
                              int* tp, float* u, int* shifts, double* squares, int* accepted,
-                             double* sums, int B, int N, int sweeps, float inv2k, float inv_w,
-                             float interval_v, int interval_t, int interval_w,
-                             unsigned long long seed, void* stream) {
+                             double* sums, const int8_t* colors, int n_colors, int B, int N,
+                             int sweeps, float inv2k, float inv_w, float interval_v,
+                             int interval_t, int interval_w, unsigned long long seed,
+                             void* stream) {
     return worldline_sweeps<float>(m_in, v_in, m, v, vp, tp, u, shifts, squares, accepted, sums,
-                                   B, N, sweeps, inv2k, inv_w, interval_v, interval_t, interval_w,
-                                   seed, stream);
+                                   colors, n_colors, B, N, sweeps, inv2k, inv_w, interval_v,
+                                   interval_t, interval_w, seed, stream);
 }
 
 }  // extern "C"

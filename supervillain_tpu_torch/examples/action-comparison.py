@@ -3,8 +3,8 @@
 they agree: the port of ``examples/action-comparison.py``.
 
 Runs on the card (``--device cuda``, the default: the Hammers' worms launch the
-worm kernels, which need an even N) or, with ``--device cpu``, through the plain
-PyTorch versions.  ``--figure`` needs matplotlib; the progress bar shows where
+worm kernels, at any N, odd or even) or, with ``--device cpu``, through the
+plain PyTorch versions.  ``--figure`` needs matplotlib; the progress bar shows where
 tqdm imports.  ``pulls`` holds (Villain − Worldline)/σ of each observable.
 """
 

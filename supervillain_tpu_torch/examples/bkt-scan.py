@@ -17,9 +17,9 @@ The inline columns are one value per chain (the JAX script's are one per
 Pallas program, which packs several chains at small L), so the bootstrap over
 per-chain time means has as many samples as chains.
 
-Runs on the card (``--device cuda``, the default; the sweep kernel needs an
-even L) or, with ``--device cpu``, through the plain PyTorch versions, at the
-size asked for in either case.  ``--h5`` (which needs h5py) stores the run's
+Runs on the card (``--device cuda``, the default; the sweep kernel takes any
+L, an odd one through its four-color table) or, with ``--device cpu``, through
+the plain PyTorch versions, at the size asked for in either case.  ``--h5`` (which needs h5py) stores the run's
 configuration as attributes of the file and each κ as a group when it
 finishes; a file written with another configuration is refused, not appended
 to.  ``main()`` returns ``{κ: results}``.

@@ -4,8 +4,8 @@ with Plaquette+Wrapping), measure → autocorrelation → cut/every → bootstra
 port of ``examples/end-to-end.py``.
 
 Runs on the card (``--device cuda``, the default; the neighborhood update
-launches the sweep kernel, which needs an even N) or, with ``--device cpu``,
-through the plain PyTorch versions.  ``--figure`` needs matplotlib, and the
+launches the sweep kernel, at any N: the default N=5 through its four-color
+table) or, with ``--device cpu``, through the plain PyTorch versions.  ``--figure`` needs matplotlib, and the
 progress bar shows where tqdm imports.
 """
 

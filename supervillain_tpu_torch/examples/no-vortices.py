@@ -5,8 +5,8 @@ match the Worldline Vortex_Vortex correlator under duality: the port of
 names a file (which needs h5py; without it nothing is cached).
 
 Runs on the card (``--device cuda``, the default: the Hammers' worms launch the
-worm kernels, which need an even N) or, with ``--device cpu``, through the plain
-PyTorch versions.  ``--pdf`` needs matplotlib.  ``pulls`` holds the pull of each
+worm kernels, at any N, odd or even) or, with ``--device cpu``, through the
+plain PyTorch versions.  ``--pdf`` needs matplotlib.  ``pulls`` holds the pull of each
 observable, ``correlator_pulls`` those of the self-dual correlator check.
 """
 

@@ -12,7 +12,7 @@ agree within Monte-Carlo error.
 Both sides are critical (massless spin waves), so thermalization is τ ~ L²
 sweeps of local updates; the defaults thermalize 8·L² sweeps and record
 samples L²/8 sweeps apart.  Runs on the card (``--device cuda``, the default;
-the kernels need an even L, at any L the card holds) or, with ``--device
+the kernels take any L the card holds, odd or even) or, with ``--device
 cpu``, through the plain PyTorch versions, at the size asked for.  ``main()``
 returns the two estimates and the pull.
 """

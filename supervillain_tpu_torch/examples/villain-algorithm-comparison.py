@@ -6,7 +6,7 @@ agree within Monte-Carlo error: the port of
 
 Without the worm there is no W>1 ergodic Villain algorithm, so W=1 throughout.
 Runs on the card (``--device cuda``, the default: the sweep and worm kernels,
-which need an even N) or, with ``--device cpu``, through the plain PyTorch
+at any N, odd or even) or, with ``--device cpu``, through the plain PyTorch
 versions.  ``--figure`` needs matplotlib.  ``pulls`` holds the pull of each
 observable.
 """

@@ -3,8 +3,8 @@
 inline measurement has far better tails: the port of
 ``examples/why-measure-inline.py``.
 
-Runs on the card (``--device cuda``, the default: the worm kernel, which needs
-an even N) or, with ``--device cpu``, through the plain PyTorch versions.
+Runs on the card (``--device cuda``, the default: the worm kernel, at any N,
+odd or even) or, with ``--device cpu``, through the plain PyTorch versions.
 ``--figure`` needs matplotlib.
 """
 

@@ -17,8 +17,9 @@ winding sectors formally ergodic).
 
 Per chain, χ_S = Σ_r C(r)/C(0) of C = correlation(e^{iφ}, e^{iφ}) is computed
 on the chains' device; only the (chains,) column comes to the host.  Runs on
-the card (``--device cuda``, the default; the kernels need an even L) or, with
-``--device cpu``, through the plain PyTorch versions, at the sizes asked for.
+the card (``--device cuda``, the default; the kernels take any L, odd or even)
+or, with ``--device cpu``, through the plain PyTorch versions, at the sizes
+asked for.
 ``main()`` returns ``{κ: {'chi': {L: (mean, error)}, 'eta': [(η_eff, error)
 for each pair of consecutive volumes]}}``.
 """

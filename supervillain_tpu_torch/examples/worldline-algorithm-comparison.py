@@ -2,8 +2,8 @@
 """Local-update stack vs +Worm for the Worldline action: same observables, shorter
 autocorrelation time: the port of ``examples/worldline-algorithm-comparison.py``.
 
-Runs on the card (``--device cuda``, the default: the worm kernel, which needs
-an even N) or, with ``--device cpu``, through the plain PyTorch versions.
+Runs on the card (``--device cuda``, the default: the worm kernel, at any N,
+odd or even) or, with ``--device cpu``, through the plain PyTorch versions.
 ``--figure`` needs matplotlib.  ``pulls`` holds the pull of each observable.
 """
 

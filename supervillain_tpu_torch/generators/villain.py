@@ -1,14 +1,20 @@
-"""Monte-Carlo updates for the Villain action (D=2), on a batch of chains.
+"""Monte-Carlo updates for the Villain action, on a batch of chains.
 
 PyTorch counterparts of the updates of :mod:`supervillain_tpu.generators.villain`
 and of its ``Hammer``.  Every step takes fields with a leading chain axis, and
 the chains stay independent: each draws its own proposals and accepts on its
-own.
+own.  The local updates take any dimension D and sweep every checkerboard
+color of the lattice (2 at even N, 2^max(D,2) at odd N); the worms are D=2
+only, as the JAX package's are.
 
 - ``NeighborhoodUpdate`` and ``ExactNeighborhoodUpdate`` run one sweep through
-  :func:`..ops.sweep.neighborhood_sweeps`, and ``ClassicWorm`` one worm through
-  :func:`..ops.worm.classic_worms`: on the card their CUDA kernels, on the CPU
-  their plain twins with draws from the step's ``torch.Generator``.
+  :func:`..ops.sweep.neighborhood_sweeps` in D=2, and ``ClassicWorm`` one worm
+  through :func:`..ops.worm.classic_worms`: on the card their CUDA kernels (B1,
+  B2), on the CPU their plain twins with draws from the step's
+  ``torch.Generator``.  At D >= 3 no kernel exists (the TPU kernels are D=2
+  only): the neighborhood sweep runs its D-general form,
+  :func:`..ops.sweep.plain_sweeps`, as PyTorch operations on the fields'
+  device, so a D >= 3 chain launches no kernel.
 - ``SiteUpdate``, ``LinkUpdate``, ``ExactUpdate``, ``CohomologyUpdate`` and
   ``ChunkedWorm`` are PyTorch operations on either device, as the JAX package
   runs them outside Pallas.  Their ΔS algebra is in the ``*_delta_s`` functions.
@@ -21,7 +27,7 @@ import torch
 
 from ..models import Villain
 from ..ops import calculus as calc
-from ..ops.sweep import neighborhood_sweeps
+from ..ops.sweep import SweepDraws, neighborhood_sweeps, plain_sweeps
 from ..ops.worm import _LINK_DIR, _LINK_OFF, _MOVES, _PLAQUETTE, classic_worms
 from .base import Generator, metropolis, uniform_nonzero_int
 from .combining import KeepEvery, Sequentially
@@ -29,11 +35,20 @@ from .combining import KeepEvery, Sequentially
 TWO_PI = 2 * np.pi
 
 
-def require_villain_2d(action):
+def require_villain(action):
     if not isinstance(action, Villain):
         raise ValueError('Need a Villain action')
+
+
+def require_worm_2d(action, what):
+    """The plaquette worms are D=2 only, as the JAX package's are."""
+    require_villain(action)
     if action.Lattice.D != 2:
-        raise NotImplementedError('The port implements the Villain updates for D=2')
+        raise NotImplementedError(f'{what} is only implemented for D=2')
+
+
+def _spatial(L):
+    return tuple(range(-L.D, 0))
 
 
 def _uniform(generator, shape, like):
@@ -43,7 +58,7 @@ def _uniform(generator, shape, like):
 # -- ΔS of each update's proposals, per site (or per link, per chain) ----------
 
 def site_delta_s(kappa, L, r, change_phi):
-    """ΔS at each site of a Δφ (B, 1, N, N) on one checkerboard color, from the
+    """ΔS at each site of a Δφ (B, 1, N, ..., N) on one checkerboard color, from the
     residual r = dφ − 2πn: Σ over the site's links of (κ/2)·dΔφ·(2r + dΔφ)."""
     cd = calc.d(L, 0, change_phi)
     return calc.face_sum(L, 1, (kappa / 2) * cd * (2 * r + cd))[:, 0]
@@ -56,16 +71,16 @@ def link_delta_s(kappa, dphi, n, change_n):
 
 
 def exact_delta_s(kappa, L, dphi, n, change_z):
-    """ΔS at each site of a Δn = dΔz, with Δz (B, 1, N, N) on one color."""
+    """ΔS at each site of a Δn = dΔz, with Δz (B, 1, N, ..., N) on one color."""
     return calc.face_sum(L, 1, link_delta_s(kappa, dphi, n, calc.d(L, 0, change_z)))[:, 0]
 
 
 def cohomology_delta_s(kappa, r_mu, mask, h):
     """ΔS per chain of adding h (B,) to n_μ on the slice ``mask`` (x_μ = 0),
-    from the residual's component μ (B, N, N)."""
-    change_r = (-TWO_PI * h.to(r_mu.dtype))[:, None, None]
+    from the residual's component μ (B, N, ..., N)."""
+    change_r = (-TWO_PI * h.to(r_mu.dtype)).reshape((-1,) + (1,) * mask.dim())
     return torch.sum(torch.where(mask, (kappa / 2) * change_r * (2 * r_mu + change_r), 0),
-                     dim=(-2, -1))
+                     dim=tuple(range(1, r_mu.dim())))
 
 
 # -- the updates ------------------------------------------------------------------
@@ -78,7 +93,7 @@ class SiteUpdate(Generator):
     fields = ('phi', 'n')
 
     def __init__(self, action, interval_phi=np.pi):
-        require_villain_2d(action)
+        require_villain(action)
         self.Action = action
         self.Lattice = action.Lattice
         self.interval_phi = float(interval_phi)
@@ -99,8 +114,8 @@ class SiteUpdate(Generator):
             applied = torch.where(accept, change_phi[:, 0], 0)[:, None]
             phi = phi + applied
             r = r + calc.d(L, 0, applied)
-            accepted = accepted + accept.sum(dim=(-2, -1))
-            acceptance = acceptance + torch.where(mask, prob, 0).sum(dim=(-2, -1))
+            accepted = accepted + accept.sum(dim=_spatial(L))
+            acceptance = acceptance + torch.where(mask, prob, 0).sum(dim=_spatial(L))
         stats = self._tally(stats, B, accepted, L.sites, acceptance / L.sites)
         return cfg | {'phi': phi}, stats, {}
 
@@ -113,7 +128,7 @@ class LinkUpdate(Generator):
     fields = ('phi', 'n')
 
     def __init__(self, action, interval_n=1):
-        require_villain_2d(action)
+        require_villain(action)
         if action.W == float('inf'):
             raise ValueError('LinkUpdate changes dn by multiples of W; undefined at W=inf.')
         self.Action = action
@@ -128,8 +143,8 @@ class LinkUpdate(Generator):
         dS = link_delta_s(S.kappa, calc.d(L, 0, phi), n, change_n)
         accept, prob = metropolis(_uniform(generator, n.shape, phi), dS)
         n = n + torch.where(accept, change_n, 0)
-        stats = self._tally(stats, n.shape[0], accept.sum(dim=(1, 2, 3)), L.links,
-                            prob.mean(dim=(1, 2, 3)))
+        form = tuple(range(1, n.dim()))
+        stats = self._tally(stats, n.shape[0], accept.sum(dim=form), L.links, prob.mean(dim=form))
         return cfg | {'n': n}, stats, {}
 
 
@@ -141,7 +156,7 @@ class ExactUpdate(Generator):
     fields = ('phi', 'n')
 
     def __init__(self, action, interval_z=1):
-        require_villain_2d(action)
+        require_villain(action)
         self.Action = action
         self.Lattice = action.Lattice
         self.interval_z = int(interval_z)
@@ -161,8 +176,8 @@ class ExactUpdate(Generator):
             accept, prob = metropolis(_uniform(generator, (B,) + L.dims, phi), dS)
             accept = accept & mask
             n = n + calc.d(L, 0, torch.where(accept, change_z[:, 0], 0)[:, None])
-            accepted = accepted + accept.sum(dim=(-2, -1))
-            acceptance = acceptance + torch.where(mask, prob, 0).sum(dim=(-2, -1))
+            accepted = accepted + accept.sum(dim=_spatial(L))
+            acceptance = acceptance + torch.where(mask, prob, 0).sum(dim=_spatial(L))
         stats = self._tally(stats, B, accepted, L.sites, acceptance / L.sites)
         return cfg | {'n': n}, stats, {}
 
@@ -176,13 +191,14 @@ class CohomologyUpdate(Generator):
     fields = ('phi', 'n')
 
     def __init__(self, action, interval_h=1):
-        require_villain_2d(action)
+        require_villain(action)
         self.Action = action
         self.Lattice = action.Lattice
         self.interval_h = int(interval_h)
-        masks = np.zeros((2,) + self.Lattice.dims, dtype=bool)
-        masks[0, 0, :] = True       # sites with x_0 = 0
-        masks[1, :, 0] = True       # sites with x_1 = 0
+        D = self.Lattice.D
+        masks = np.zeros((D,) + self.Lattice.dims, dtype=bool)
+        for mu in range(D):         # sites with x_μ = 0
+            masks[(mu,) + tuple(0 if i == mu else slice(None) for i in range(D))] = True
         self._slice_masks = masks
         self._on_device = {}
 
@@ -200,7 +216,7 @@ class CohomologyUpdate(Generator):
                                     device=n.device)
             dS = cohomology_delta_s(S.kappa, r[:, mu], masks[mu], h)
             accept, prob = metropolis(_uniform(generator, (B,), phi), dS)
-            dh = torch.where(accept, h, 0)[:, None, None]
+            dh = torch.where(accept, h, 0).reshape((B,) + (1,) * L.D)
             n = n.clone()
             n[:, mu] += torch.where(masks[mu], dh, 0)
             r = r.clone()
@@ -211,11 +227,27 @@ class CohomologyUpdate(Generator):
         return cfg | {'n': n}, stats, {}
 
 
+def run_sweeps(phi, n, *, kappa, W, interval_phi, interval_n, sweeps, p_n, generator):
+    """:func:`..ops.sweep.neighborhood_sweeps` in D=2 (B1 on the card); at D >= 3,
+    where no kernel exists, its D-general plain form on the fields' device
+    with draws from ``generator``."""
+    D = phi.dim() - 2
+    if D == 2:
+        return neighborhood_sweeps(phi, n, kappa=kappa, W=W, interval_phi=interval_phi,
+                                   interval_n=interval_n, sweeps=sweeps, p_n=p_n,
+                                   generator=generator)
+    draws = SweepDraws(generator, B=phi.shape[0], N=phi.shape[-1], interval_phi=interval_phi,
+                       interval_n=interval_n, p_n=p_n, zmode=W == float('inf'), fdt=phi.dtype,
+                       idt=n.dtype, device=phi.device, D=D)
+    return plain_sweeps(phi, n, kappa=kappa, W=W, sweeps=sweeps, draws=draws)
+
+
 class NeighborhoodUpdate(Generator):
     r"""Simultaneous site-neighborhood update: Δφ at each same-color site plus
     ``Δn ∈ W·{-interval_n..interval_n}`` on the links touching it (zero-inflated
     with probability ``p_n`` of a nonzero Δn when given): one sweep of
-    :func:`..ops.sweep.neighborhood_sweeps` (B1 on the card).
+    :func:`..ops.sweep.neighborhood_sweeps` in D=2 (B1 on the card), of its
+    D-general PyTorch form :func:`..ops.sweep.plain_sweeps` at D >= 3.
 
     The stats' ``acceptance`` tallies the realized accepted fraction."""
 
@@ -223,7 +255,7 @@ class NeighborhoodUpdate(Generator):
     fields = ('phi', 'n')
 
     def __init__(self, action, interval_phi=np.pi, interval_n=1, p_n=None):
-        require_villain_2d(action)
+        require_villain(action)
         if action.W == float('inf'):
             raise ValueError('NeighborhoodUpdate offers Δn in multiples of W; undefined at W=inf.')
         self.Action = action
@@ -237,10 +269,10 @@ class NeighborhoodUpdate(Generator):
 
     def step(self, generator, cfg, stats):
         L = self.Lattice
-        phi, n, accepted, _ = neighborhood_sweeps(
-            cfg['phi'], cfg['n'], kappa=self.Action.kappa, W=self._kernel_W(),
-            interval_phi=self.interval_phi, interval_n=self.interval_n, sweeps=1, p_n=self.p_n,
-            generator=generator)
+        phi, n, accepted, _ = run_sweeps(cfg['phi'], cfg['n'], kappa=self.Action.kappa,
+                                         W=self._kernel_W(), interval_phi=self.interval_phi,
+                                         interval_n=self.interval_n, sweeps=1, p_n=self.p_n,
+                                         generator=generator)
         stats = self._tally(stats, phi.shape[0], accepted, L.sites, accepted / L.sites)
         return cfg | {'phi': phi, 'n': n}, stats, {}
 
@@ -252,7 +284,7 @@ class ExactNeighborhoodUpdate(NeighborhoodUpdate):
     name = 'ExactNeighborhoodUpdate'
 
     def __init__(self, action, interval_phi=np.pi, interval_z=1, p_z=None):
-        require_villain_2d(action)
+        require_villain(action)
         self.Action = action
         self.Lattice = action.Lattice
         self.interval_phi = float(interval_phi)
@@ -289,7 +321,7 @@ class ClassicWorm(_WormReport, Generator):
     fields = ('phi', 'n')
 
     def __init__(self, action, max_moves=None):
-        require_villain_2d(action)
+        require_worm_2d(action, 'ClassicWorm')
         self.Action = action
         self.Lattice = action.Lattice
         self.max_moves = None if max_moves is None else int(max_moves)
@@ -325,7 +357,7 @@ class ChunkedWorm(_WormReport, Generator):
     fields = ('phi', 'n')
 
     def __init__(self, action, moves_per_step=8):
-        require_villain_2d(action)
+        require_worm_2d(action, 'ChunkedWorm')
         if action.W != 1:
             raise ValueError(
                 'ChunkedWorm emits on a fixed stride, which is only unbiased at W=1 '
@@ -402,27 +434,29 @@ class ChunkedWorm(_WormReport, Generator):
 
 def Hammer(S, worms=1, worm_moves=None, fleet=False, max_worm_moves=None):
     """Ergodic composite for the Villain action:
-    Sequentially(Site, [Link if W<∞], Exact, Cohomology, Worm).
+    Sequentially(Site, [Link if W<∞], Exact, Cohomology, [Worm if D=2]).  At
+    D >= 3 no step launches a kernel.
 
     ``worm_moves``: at W=1, a :class:`ChunkedWorm` of that many micro-moves per
     step in place of the :class:`ClassicWorm`.  ``fleet``: a worm whose step
     time is bounded over many chains: :class:`ChunkedWorm` (64 micro-moves) at
     W=1, :class:`ClassicWorm` with ``max_moves=max_worm_moves`` (default
     8·sites) at W>1.  ``max_worm_moves`` also caps the worm without ``fleet``."""
-    require_villain_2d(S)
+    require_villain(S)
     parts = [SiteUpdate(S)]
     if S.W < float('inf'):
         parts.append(LinkUpdate(S))
     parts.append(ExactUpdate(S))
     parts.append(CohomologyUpdate(S))
-    if worm_moves is not None and S.W == 1:
-        parts.append(ChunkedWorm(S, moves_per_step=worm_moves))
-    elif fleet and S.W == 1:
-        parts.append(ChunkedWorm(S, moves_per_step=64))
-    else:
-        cap = max_worm_moves
-        if fleet and cap is None:
-            cap = 8 * S.Lattice.sites
-        worm = ClassicWorm(S, max_moves=cap)
-        parts.append(KeepEvery(worms, worm) if worms > 1 else worm)
+    if S.Lattice.D == 2:
+        if worm_moves is not None and S.W == 1:
+            parts.append(ChunkedWorm(S, moves_per_step=worm_moves))
+        elif fleet and S.W == 1:
+            parts.append(ChunkedWorm(S, moves_per_step=64))
+        else:
+            cap = max_worm_moves
+            if fleet and cap is None:
+                cap = 8 * S.Lattice.sites
+            worm = ClassicWorm(S, max_moves=cap)
+            parts.append(KeepEvery(worms, worm) if worms > 1 else worm)
     return Sequentially(parts)

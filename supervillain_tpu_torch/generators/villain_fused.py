@@ -6,6 +6,12 @@ a GPU and the plain versions for fields on the CPU; the TPU package's size and
 backend conditions for falling back to the XLA generators have no counterpart
 here.  The inline ``ActionDensity`` and ``WindingSquared`` are averaged over
 the step's sweeps.
+
+The kernels are D=2 only, as the TPU kernels are.  At D >= 3 the fused sweeps
+run the eager :class:`~.villain.NeighborhoodUpdate` (or
+``ExactNeighborhoodUpdate``) ``sweeps_per_step`` times, as PyTorch operations
+with no inline columns, as the JAX package falls back to its XLA updates; the
+fused worms and ``FusedHammer`` raise there, as the JAX worm does.
 """
 
 from __future__ import annotations
@@ -16,7 +22,8 @@ from ..ops.hammer import hammer_sweeps
 from ..ops.sweep import neighborhood_sweeps
 from ..ops.worm import classic_worms
 from .base import Generator, empty_stats
-from .villain import require_villain_2d
+from .villain import (ExactNeighborhoodUpdate, NeighborhoodUpdate, require_villain,
+                      require_worm_2d)
 
 
 class FusedNeighborhoodUpdate(Generator):
@@ -26,7 +33,7 @@ class FusedNeighborhoodUpdate(Generator):
     fields = ('phi', 'n')
 
     def __init__(self, action, interval_phi=np.pi, interval_n=1, sweeps_per_step=1, p_n=None):
-        require_villain_2d(action)
+        require_villain(action)
         if action.W == float('inf'):
             raise ValueError('NeighborhoodUpdate offers Δn in multiples of W; undefined at '
                              'W=inf — use FusedExactNeighborhoodUpdate.')
@@ -37,11 +44,21 @@ class FusedNeighborhoodUpdate(Generator):
         self.sweeps_per_step = int(sweeps_per_step)
         self.p_n = None if p_n is None else float(p_n)
         self._kernel_W = action.W
+        self._fallback = self._eager() if action.Lattice.D != 2 else None
+
+    def _eager(self):
+        return NeighborhoodUpdate(self.Action, self.interval_phi, self.interval_n, p_n=self.p_n)
 
     def inline_shapes(self):
+        if self._fallback is not None:
+            return {}
         return {'ActionDensity': (), 'WindingSquared': ()}
 
     def step(self, generator, cfg, stats):
+        if self._fallback is not None:
+            for _ in range(self.sweeps_per_step):
+                cfg, stats, _ = self._fallback.step(generator, cfg, stats)
+            return cfg, stats, {}
         S, L = self.Action, self.Lattice
         phi, n, accepted, inline = neighborhood_sweeps(
             cfg['phi'], cfg['n'], kappa=S.kappa, W=self._kernel_W,
@@ -59,7 +76,7 @@ class FusedExactNeighborhoodUpdate(FusedNeighborhoodUpdate):
     name = 'ExactNeighborhoodUpdate'
 
     def __init__(self, action, interval_phi=np.pi, interval_z=1, sweeps_per_step=1, p_z=None):
-        require_villain_2d(action)
+        require_villain(action)
         self.Action = action
         self.Lattice = action.Lattice
         self.interval_phi = float(interval_phi)
@@ -67,6 +84,11 @@ class FusedExactNeighborhoodUpdate(FusedNeighborhoodUpdate):
         self.sweeps_per_step = int(sweeps_per_step)
         self.p_n = None if p_z is None else float(p_z)
         self._kernel_W = float('inf')
+        self._fallback = self._eager() if action.Lattice.D != 2 else None
+
+    def _eager(self):
+        return ExactNeighborhoodUpdate(self.Action, self.interval_phi, self.interval_n,
+                                       p_z=self.p_n)
 
     # The JAX package's names of the Δz interval and zero-inflation.
     interval_z = property(lambda self: self.interval_n)
@@ -84,7 +106,7 @@ class FusedHammer(Generator):
 
     def __init__(self, action, interval_phi=np.pi, interval_n=1, sweeps_per_step=1,
                  worms=1, p_n=None, max_worm_moves=None):
-        require_villain_2d(action)
+        require_worm_2d(action, 'FusedHammer')
         self.Action = action
         self.Lattice = action.Lattice
         self.interval_phi = float(interval_phi)
@@ -128,7 +150,7 @@ class FusedClassicWorm(Generator):
     fields = ('phi', 'n')
 
     def __init__(self, action, worms=1, max_worm_moves=None):
-        require_villain_2d(action)
+        require_worm_2d(action, 'ClassicWorm')
         self.Action = action
         self.Lattice = action.Lattice
         self.worms = int(worms)

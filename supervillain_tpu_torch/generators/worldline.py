@@ -1,14 +1,19 @@
-"""Monte-Carlo updates for the Worldline action (D=2), on a batch of chains.
+"""Monte-Carlo updates for the Worldline action, on a batch of chains.
 
 PyTorch counterparts of the updates of :mod:`supervillain_tpu.generators.worldline`
 and of its ``Hammer``.  Every step takes fields with a leading chain axis.
 ``VortexUpdate``, ``CoexactUpdate`` and ``WrappingUpdate`` run the passes of
-:mod:`..ops.worldline` and ``PlaquetteUpdate`` its own, as PyTorch operations
-on either device with draws from the step's ``torch.Generator`` (the JAX
-package runs them outside Pallas; the kernel B4 fuses the first three, so none
-is a kernel's function alone).  ``ClassicWorm`` runs one worm per chain through
-:func:`..ops.worldline_worm.worldline_worms`: the CUDA kernel B5 on the card,
-its plain twin on the CPU.
+:mod:`..ops.worldline` and ``PlaquetteUpdate`` its own, in any dimension D, as
+PyTorch operations on either device with draws from the step's
+``torch.Generator`` (the JAX package runs them outside Pallas; the kernel B4
+fuses the first three, so none is a kernel's function alone).  They sweep
+every checkerboard color of the lattice: 2 at even N, 2^max(D,2) at odd N.
+``ClassicWorm`` runs one worm per chain through
+:func:`..ops.worldline_worm.worldline_worms` in D=2 (the CUDA kernel B5 on the
+card, its plain twin on the CPU).  At D >= 3 no kernel exists (the TPU kernels
+are D=2 only, as the JAX package's are): the worm runs the D-general move
+rule of :func:`..ops.worldline_worm.plain_worldline_worms` as PyTorch
+operations on the fields' device, so a D >= 3 chain launches no kernel.
 """
 
 from __future__ import annotations
@@ -17,21 +22,25 @@ import torch
 
 from ..models import Worldline
 from ..ops import calculus as calc
-from ..ops.sweep import lattice
-from ..ops.worldline import (WorldlineSweepDraws, coexact_pass, inverse_w, residual,
-                             vortex_pass, wrapping_pass)
-from ..ops.worldline_worm import worldline_worms
+from ..ops.worldline import (WorldlineSweepDraws, coexact_pass, inverse_w, on_component, passes,
+                             residual, vortex_pass, wrapping_pass)
+from ..ops.worldline_worm import WorldlineWormDraws, plain_worldline_worms, worldline_worms
 from ..device import float_dtype_of
 from .base import Generator, metropolis
 from .combining import KeepEvery, Sequentially
 from .villain import _WormReport
 
 
-def require_worldline_2d(action):
+def require_worldline(action):
     if not isinstance(action, Worldline):
         raise ValueError('Need a Worldline action')
+
+
+def require_worldline_2d(action, what):
+    """The fused worm kernels are D=2 only, as the TPU kernels are."""
+    require_worldline(action)
     if action.Lattice.D != 2:
-        raise NotImplementedError('The port implements the Worldline updates for D=2')
+        raise NotImplementedError(f'{what} is only implemented for D=2')
 
 
 class _LocalUpdate(Generator):
@@ -41,7 +50,7 @@ class _LocalUpdate(Generator):
     fields = ('m', 'v')
 
     def __init__(self, action, interval_v=1, interval_t=1, interval_w=1):
-        require_worldline_2d(action)
+        require_worldline(action)
         self.Action = action
         self.Lattice = action.Lattice
         # At W=∞ the vortex proposal is continuous U(-interval_v, +interval_v).
@@ -50,15 +59,16 @@ class _LocalUpdate(Generator):
         self.interval_w = int(interval_w)
 
     def _proposals(self):
-        return self.Lattice.sites
+        return self.Lattice.cells_of_degree[2]
 
     def step(self, generator, cfg, stats):
         m, v = cfg['m'], cfg['v']
+        L = self.Lattice
         draws = WorldlineSweepDraws(
-            generator, B=m.shape[0], N=self.Lattice.N, interval_v=self.interval_v,
+            generator, B=m.shape[0], N=L.N, interval_v=self.interval_v,
             interval_t=self.interval_t, interval_w=self.interval_w,
             winf=self.Action.W == float('inf'), fdt=float_dtype_of(v), idt=m.dtype,
-            device=m.device)
+            device=m.device, D=L.D)
         m, v, accepted = self._passes(m, v, residual(m, v, self.Action.W), draws)
         proposals = self._proposals()
         accepted = accepted.to(draws.fdt)
@@ -67,9 +77,10 @@ class _LocalUpdate(Generator):
 
 
 class VortexUpdate(_LocalUpdate):
-    r"""Metropolis update of v alone, per checkerboard color: ``Δv ∈
-    ±{1..interval_v}`` (finite W) or ``U(-interval_v, +interval_v)`` (W=∞).
-    The stats' ``acceptance`` tallies the realized accepted fraction."""
+    r"""Metropolis update of v alone, per checkerboard color and 2-form
+    component: ``Δv ∈ ±{1..interval_v}`` (finite W) or
+    ``U(-interval_v, +interval_v)`` (W=∞).  The stats' ``acceptance`` tallies
+    the realized accepted fraction."""
 
     name = 'VortexUpdate'
 
@@ -78,16 +89,17 @@ class VortexUpdate(_LocalUpdate):
 
     def _passes(self, m, v, u, draws):
         accepted = 0
-        for color in range(2):
-            v, u, acc = vortex_pass(v, u, color, draws('vortex', color),
-                                    kappa=self.Action.kappa, W=self.Action.W)
-            accepted = accepted + acc
+        for kind, color, comp in passes(self.Lattice):
+            if kind == 'vortex':
+                v, u, acc = vortex_pass(v, u, color, draws(kind, color), kappa=self.Action.kappa,
+                                        W=self.Action.W, comp=comp)
+                accepted = accepted + acc
         return m, v, accepted
 
 
 class CoexactUpdate(_LocalUpdate):
-    r"""Coordinated update ``Δm = δt`` with t an integer 2-form on one color, so
-    ``δ(Δm) = δ²t = 0`` and the constraint survives."""
+    r"""Coordinated update ``Δm = δt`` with t an integer 2-form on one color and
+    component, so ``δ(Δm) = δ²t = 0`` and the constraint survives."""
 
     name = 'CoexactUpdate'
 
@@ -96,16 +108,18 @@ class CoexactUpdate(_LocalUpdate):
 
     def _passes(self, m, v, u, draws):
         accepted = 0
-        for color in range(2):
-            m, u, acc = coexact_pass(m, u, color, draws('coexact', color), kappa=self.Action.kappa)
-            accepted = accepted + acc
+        for kind, color, comp in passes(self.Lattice):
+            if kind == 'coexact':
+                m, u, acc = coexact_pass(m, u, color, draws(kind, color),
+                                         kappa=self.Action.kappa, comp=comp)
+                accepted = accepted + acc
         return m, v, accepted
 
 
 class WrappingUpdate(_LocalUpdate):
     r"""Coordinated ``Δm ∈ ±{1..interval_w}`` on entire straight cycles around
-    the torus, one proposal per direction μ and perpendicular position: the only
-    local update that changes the wrapping."""
+    the torus, one proposal per direction μ and perpendicular position
+    (D·N^(D−1) cycles): the only local update that changes the wrapping."""
 
     name = 'WrappingUpdate'
 
@@ -113,78 +127,83 @@ class WrappingUpdate(_LocalUpdate):
         super().__init__(action, interval_w=interval_w)
 
     def _proposals(self):
-        return 2 * self.Lattice.N
+        L = self.Lattice
+        return L.D * L.N ** (L.D - 1)
 
     def _passes(self, m, v, u, draws):
-        m, u, accepted = wrapping_pass(m, u, draws('wrapping', 0), draws('wrapping', 1),
+        m, u, accepted = wrapping_pass(m, u, [draws('wrapping', mu) for mu in range(self.Lattice.D)],
                                        kappa=self.Action.kappa)
         return m, v, accepted
 
 
-def plaquette_delta_s(kappa, L, f, t, change_v, W):
-    """ΔS at each plaquette of a PlaquetteUpdate proposal on one color: the
-    boundary change δt and Δv (each (B, 1, N, N)) change the links' residual
-    f = m − δv/_W by δt − δΔv/_W."""
+def plaquette_delta_s(kappa, L, f, t, change_v, W, comp=0):
+    """ΔS at each plaquette of component ``comp`` of a PlaquetteUpdate proposal
+    on one color: the boundary change δt and Δv (each a 2-form (B, C(D,2), N,
+    ..., N)) change the links' residual f = m − δv/_W by δt − δΔv/_W."""
     change_f = calc.delta(L, 2, t).to(f.dtype) - calc.delta(L, 2, change_v).to(f.dtype) * inverse_w(W)
-    return calc.coface_sum(L, 1, (0.5 / kappa) * change_f * (2 * f + change_f))[:, 0]
+    return calc.coface_sum(L, 1, (0.5 / kappa) * change_f * (2 * f + change_f))[:, comp]
 
 
 class PlaquetteUpdate(Generator):
     r"""Coordinated ±1 on the 4 boundary links of each plaquette (Δm = δt) together
     with ``Δv ∈ {-1, 0, +1}`` on the plaquette itself, so δm stays 0.  Swept per
-    checkerboard color: same-color plaquettes share no links.  Not ergodic alone
-    (cannot change the wrapping)."""
+    checkerboard color and 2-form component: same-color plaquettes of one
+    component share no links.  Not ergodic alone (cannot change the wrapping)."""
 
     name = 'PlaquetteUpdate'
     fields = ('m', 'v')
 
     def __init__(self, action):
-        require_worldline_2d(action)
+        require_worldline(action)
         self.Action = action
         self.Lattice = action.Lattice
 
     def step(self, generator, cfg, stats):
-        S = self.Action
+        S, L = self.Action, self.Lattice
         m, v = cfg['m'], cfg['v']
-        B, N = m.shape[0], m.shape[-1]
-        L = lattice(N)
+        B, site = m.shape[0], (m.shape[0],) + L.dims
+        spatial = tuple(range(-L.D, 0))
         f = residual(m, v, S.W)
         accepted = acceptance = 0
-        for color in range(L.n_colors):
+        for kind, color, comp in passes(L):
+            if kind != 'vortex':    # one pass per (color, component), in that order
+                continue
             mask = L.mask(color, m.device)
-            cm = 2 * torch.randint(0, 2, (B, N, N), generator=generator, device=m.device,
+            cm = 2 * torch.randint(0, 2, site, generator=generator, device=m.device,
                                    dtype=m.dtype) - 1
-            cv = torch.randint(-1, 2, (B, N, N), generator=generator, device=m.device).to(v.dtype)
-            t = torch.where(mask, cm, 0)[:, None]
-            change_v = torch.where(mask, cv, 0)[:, None]
-            dS = plaquette_delta_s(S.kappa, L, f, t, change_v, S.W)
-            accept, prob = metropolis(torch.rand((B, N, N), generator=generator, dtype=f.dtype,
+            cv = torch.randint(-1, 2, site, generator=generator, device=m.device).to(v.dtype)
+            t = on_component(torch.where(mask, cm, 0), comp, L)
+            change_v = on_component(torch.where(mask, cv, 0), comp, L)
+            dS = plaquette_delta_s(S.kappa, L, f, t, change_v, S.W, comp)
+            accept, prob = metropolis(torch.rand(site, generator=generator, dtype=f.dtype,
                                                  device=m.device), dS)
             accept = accept & mask
-            applied_t = torch.where(accept, t[:, 0], 0)[:, None]
-            applied_v = torch.where(accept, change_v[:, 0], 0)[:, None]
+            applied_t = on_component(torch.where(accept, cm, 0), comp, L)
+            applied_v = on_component(torch.where(accept, cv, 0), comp, L)
             dm = calc.delta(L, 2, applied_t)
             m = m + dm
             v = v + applied_v
             f = f + dm.to(f.dtype) - calc.delta(L, 2, applied_v).to(f.dtype) * inverse_w(S.W)
-            accepted = accepted + accept.sum(dim=(-2, -1))
-            acceptance = acceptance + torch.where(mask, prob, 0).sum(dim=(-2, -1))
-        stats = self._tally(stats, B, accepted, L.sites, acceptance / L.sites)
+            accepted = accepted + accept.sum(dim=spatial)
+            acceptance = acceptance + torch.where(mask, prob, 0).sum(dim=spatial)
+        plaquettes = L.cells_of_degree[2]
+        stats = self._tally(stats, B, accepted, plaquettes, acceptance / plaquettes)
         return cfg | {'m': m, 'v': v}, stats, {}
 
 
 class ClassicWorm(_WormReport, Generator):
-    r"""Prokof'ev–Svistunov worm on the sites, one per chain and step:
-    :func:`..ops.worldline_worm.worldline_worms` (B5 on the card).  Tallies the
-    inline ``Spin_Spin`` histogram and ``Worm_Length``.  ``max_moves`` caps a
-    worm; an unclosed worm breaks δm = 0 and is rolled back at every W.  Never
-    changes v."""
+    r"""Prokof'ev–Svistunov worm on the sites, one per chain and step, in any D:
+    :func:`..ops.worldline_worm.worldline_worms` in D=2 (B5 on the card), and
+    at D >= 3 its plain move rule as PyTorch operations on the fields' device
+    (no kernel exists there).  Tallies the inline ``Spin_Spin`` histogram and
+    ``Worm_Length``.  ``max_moves`` caps a worm; an unclosed worm breaks δm = 0
+    and is rolled back at every W.  Never changes v."""
 
     name = 'ClassicWorm'
     fields = ('m', 'v')
 
     def __init__(self, action, max_moves=None):
-        require_worldline_2d(action)
+        require_worldline(action)
         self.Action = action
         self.Lattice = action.Lattice
         self.max_moves = None if max_moves is None else int(max_moves)
@@ -193,10 +212,17 @@ class ClassicWorm(_WormReport, Generator):
         return {'Spin_Spin': self.Lattice.dims, 'Worm_Length': ()}
 
     def step(self, generator, cfg, stats):
-        m = cfg['m']
-        m, hist, length, truncated = worldline_worms(
-            m, cfg['v'], kappa=self.Action.kappa, W=self.Action.W, worms=1,
-            max_worm_moves=self.max_moves, generator=generator)
+        m, v, L = cfg['m'], cfg['v'], self.Lattice
+        if L.D == 2:
+            m, hist, length, truncated = worldline_worms(
+                m, v, kappa=self.Action.kappa, W=self.Action.W, worms=1,
+                max_worm_moves=self.max_moves, generator=generator)
+        else:
+            draws = WorldlineWormDraws(generator, B=m.shape[0], N=L.N, fdt=float_dtype_of(v),
+                                       device=m.device, D=L.D)
+            m, hist, length, truncated = plain_worldline_worms(
+                m, v, kappa=self.Action.kappa, W=self.Action.W, worms=1,
+                max_worm_moves=self.max_moves, draws=draws)
         stats = self._tally(stats, m.shape[0], length, length, 1 - truncated)
         # Float32 tallies, as the JAX package keeps them (exact below 2**24).
         return cfg | {'m': m}, stats, {'Spin_Spin': hist.float(), 'Worm_Length': length.float()}
@@ -208,8 +234,8 @@ def Hammer(S, worms=1, fleet=False, max_worm_moves=None):
 
     ``fleet``: bound the worm's step time over many chains
     (``max_moves=max_worm_moves``, default 8·sites); ``max_worm_moves`` also
-    caps the worm without ``fleet``."""
-    require_worldline_2d(S)
+    caps the worm without ``fleet``.  Any D; at D >= 3 no step launches a kernel."""
+    require_worldline(S)
     cap = max_worm_moves
     if fleet and cap is None:
         cap = 8 * S.Lattice.sites

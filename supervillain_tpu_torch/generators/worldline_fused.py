@@ -7,6 +7,11 @@ package's backend and ``N % 128`` conditions for falling back to the XLA
 generators have no counterpart here.  The stats tags and proposal counts are
 the TPU kernels': ``WorldlineLocalUpdates`` (2·sites + 2N proposals per sweep)
 and ``ClassicWorm``.
+
+The kernels are D=2 only, as the TPU kernels are.  At D >= 3
+``FusedWorldlineUpdate`` runs the eager Vortex, Coexact and Wrapping updates
+``sweeps_per_step`` times, as PyTorch operations with no inline columns, as the
+JAX package falls back to its XLA updates; the fused worm and Hammer raise there.
 """
 
 from __future__ import annotations
@@ -15,7 +20,9 @@ from ..ops.worldline import worldline_sweeps
 from ..ops.worldline_hammer import worldline_hammer_sweeps
 from ..ops.worldline_worm import worldline_worms
 from .base import Generator, empty_stats
-from .worldline import require_worldline_2d
+from .combining import Sequentially
+from .worldline import (CoexactUpdate, VortexUpdate, WrappingUpdate, require_worldline,
+                        require_worldline_2d)
 
 
 class FusedWorldlineUpdate(Generator):
@@ -26,13 +33,23 @@ class FusedWorldlineUpdate(Generator):
     fields = ('m', 'v')
 
     def __init__(self, action, interval_v=1, interval_t=1, interval_w=1, sweeps_per_step=1):
-        require_worldline_2d(action)
+        require_worldline(action)
         self.Action = action
         self.Lattice = action.Lattice
         self.interval_v = float(interval_v) if action.W == float('inf') else int(interval_v)
         self.interval_t = int(interval_t)
         self.interval_w = int(interval_w)
         self.sweeps_per_step = int(sweeps_per_step)
+        self._fallback = None
+        if action.Lattice.D != 2:
+            self._fallback = Sequentially((VortexUpdate(action, self.interval_v),
+                                           CoexactUpdate(action, self.interval_t),
+                                           WrappingUpdate(action, self.interval_w)))
+
+    def init_stats(self):
+        if self._fallback is not None:
+            return self._fallback.init_stats()
+        return super().init_stats()
 
     def _proposals(self):
         L = self.Lattice
@@ -44,6 +61,10 @@ class FusedWorldlineUpdate(Generator):
                     sweeps=self.sweeps_per_step)
 
     def step(self, generator, cfg, stats):
+        if self._fallback is not None:
+            for _ in range(self.sweeps_per_step):
+                cfg, stats, _ = self._fallback.step(generator, cfg, stats)
+            return cfg, stats, {}
         m, v, accepted, _ = worldline_sweeps(cfg['m'], cfg['v'], generator=generator,
                                              **self._sweep_args())
         stats = self._tally(stats, m.shape[0], accepted, self._proposals(),
@@ -58,7 +79,7 @@ class FusedWorldlineWorm(Generator):
     fields = ('m', 'v')
 
     def __init__(self, action, worms=1, max_worm_moves=None):
-        require_worldline_2d(action)
+        require_worldline_2d(action, 'FusedWorldlineWorm')
         self.Action = action
         self.Lattice = action.Lattice
         self.worms = int(worms)
@@ -87,6 +108,7 @@ class FusedWorldlineHammer(FusedWorldlineUpdate):
 
     def __init__(self, action, interval_v=1, interval_t=1, interval_w=1, sweeps_per_step=1,
                  worms=1, max_worm_moves=None):
+        require_worldline_2d(action, 'FusedWorldlineHammer')
         super().__init__(action, interval_v, interval_t, interval_w, sweeps_per_step)
         self.worms = int(worms)
         self.max_worm_moves = None if max_worm_moves is None else int(max_worm_moves)

@@ -2,9 +2,11 @@
 
 The system has no trained weights: what carries over is the field state and
 the action's parameters.  A configuration is a dict of NumPy arrays in the JAX
-package's layout, ``{'phi': (..., 1, N, N), 'n': (..., 2, N, N)}`` (Villain)
-or ``{'m': (..., 2, N, N), 'v': (..., 1, N, N)}`` (Worldline), with any
-leading batch axes.
+package's layout on a lattice of any dimension D, ``{'phi': (..., 1, N, ..., N),
+'n': (..., D, N, ..., N)}`` (Villain) or ``{'m': (..., D, N, ..., N), 'v': (...,
+C(D,2), N, ..., N)}`` (Worldline), with any leading batch axes: the functions
+below carry every array as it is, so a D=4 configuration of the JAX package
+becomes the port's D=4 state.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 
 from .device import field_dtypes, resolve_device
 from .models import Villain, Worldline
-from .ops import Lattice2D
+from .ops import Lattice, Lattice2D
 
 
 def state_from_numpy(cfg, device='cuda', dtypes=None):
@@ -42,11 +44,16 @@ def state_to_numpy(state):
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
 
 
-def villain_action(N, kappa, W):
-    """The Villain action on the D=2 lattice of side N."""
-    return Villain(Lattice2D(N), kappa, W)
+def lattice(N, D=2):
+    """The lattice of side N in dimension D (a :class:`Lattice2D` in D=2)."""
+    return Lattice2D(N) if D == 2 else Lattice(D, N)
 
 
-def worldline_action(N, kappa, W):
-    """The Worldline action on the D=2 lattice of side N."""
-    return Worldline(Lattice2D(N), kappa, W)
+def villain_action(N, kappa, W, D=2):
+    """The Villain action on the lattice of side N in dimension D."""
+    return Villain(lattice(N, D), kappa, W)
+
+
+def worldline_action(N, kappa, W, D=2):
+    """The Worldline action on the lattice of side N in dimension D."""
+    return Worldline(lattice(N, D), kappa, W)

@@ -23,6 +23,10 @@ from .vortex import (
     Vortex_Vortex, Vortex_Vortex_Normalized, VortexSusceptibility,
     VortexSusceptibilityScaled, VortexCriticalMoment,
 )
+from .topological import (
+    TopologicalChargeDensity, TopologicalCharge, TopologicalChargeDensitySquared,
+    TopologicalTwoPoint, Topological_Topological,
+)
 
 #: All primary observables.
 observables = registry

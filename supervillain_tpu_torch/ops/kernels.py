@@ -26,10 +26,10 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P, _I, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_ulonglong, ctypes.c_float)
-_WORLDLINE_SWEEPS = [_P] * 11 + [_I, _I, _I, _F, _F, _F, _I, _I, _ULL, _P]
+_WORLDLINE_SWEEPS = [_P] * 12 + [_I, _I, _I, _I, _F, _F, _F, _I, _I, _ULL, _P]
 _WORLDLINE_WORMS = [_P] * 7 + [_LL, _I, _I, _F, _F, _I, _LL, _ULL, _P]
 _SIGNATURES = {
-    'sv_sweeps': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _I, _F, _ULL, _P],
+    'sv_sweeps': [_P] * 8 + [_I, _I, _I, _I, _F, _I, _F, _I, _F, _ULL, _P],
     'sv_sweeps_resident': [_P] * 7 + [_I, _I, _I, _F, _I, _F, _I, _F, _ULL, _I, _I, _I, _I, _P],
     'sv_sweeps_resident_clusters': [_I, _I, _I, _P],
     'sv_worms': [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _I, _LL, _I, _ULL, _P],
@@ -129,7 +129,7 @@ def seed_from(generator: torch.Generator) -> int:
 def _require_batch(first, second, dtypes, components):
     """Validate a chain batch of two fields ``(name, tensor)`` for the kernels:
     (B, c, N, N) of the given dtypes and component counts, contiguous, on one
-    CUDA device, N even.  Returns (B, N)."""
+    CUDA device, N >= 2 (even or odd).  Returns (B, N)."""
     (na, a), (nb, b) = first, second
     if a.device.type != 'cuda' or b.device != a.device:
         raise ValueError(f'kernels need {na} and {nb} on one CUDA device, got {a.device} and {b.device}')
@@ -142,8 +142,8 @@ def _require_batch(first, second, dtypes, components):
     B, _, N, _ = a.shape
     if tuple(b.shape) != (B, cb, N, N):
         raise ValueError(f'{nb} must be (B, {cb}, N, N) = {(B, cb, N, N)}, got {tuple(b.shape)}')
-    if N < 2 or N % 2 != 0:
-        raise ValueError(f'kernels need an even N >= 2, got N={N}')
+    if N < 2:
+        raise ValueError(f'kernels need N >= 2, got N={N}')
     if 2 * B * N * N >= 2 ** 31:
         raise ValueError(f'{B} chains of N={N} exceed the kernels\' 32-bit site indexing')
     if not (a.is_contiguous() and b.is_contiguous()):

@@ -9,7 +9,9 @@ The lattice is static metadata compared by ``(D, N)``.  Incidence tables,
 checkerboard masks, coordinates and point-group permutations are host NumPy
 constants; :meth:`Lattice.mask` hands a checkerboard color to a device as a
 cached ``torch.bool`` tensor.  The Fourier methods run ``torch.fft`` on the
-device of the tensor they are given.
+device of the tensor they are given.  :meth:`Lattice.zeros` and
+:meth:`Lattice.random` make device tensors, :meth:`Lattice.form` a host-tier
+:class:`~.form.Form`.
 """
 
 from __future__ import annotations
@@ -65,13 +67,47 @@ class Lattice:
     def origin(self):
         return (0,) * self.D
 
+    @property
+    def dim(self):
+        return self.D
+
     @cached_property
     def links(self):
         return self.D * self.sites
 
+    @cached_property
+    def cells_of_degree(self):
+        """The number of p-cells, C(D,p)·N^D, for every degree p."""
+        return {p: comb(self.D, p) * self.sites for p in range(self.D + 1)}
+
+    @cached_property
+    def cells_of_codegree(self):
+        return {q: self.cells_of_degree[self.D - q] for q in range(self.D + 1)}
+
     def form_shape(self, p: int):
         """Shape ``(C(D,p), N, ..., N)`` of a p-form."""
         return (comb(self.D, p),) + self.dims
+
+    # -- factories --------------------------------------------------------
+
+    def zeros(self, p: int, dtype=torch.float32, device='cpu'):
+        """A zero p-form tensor on ``device``."""
+        return torch.zeros(self.form_shape(p), dtype=dtype, device=device)
+
+    def form(self, p: int, data=None, dtype=float):
+        """Host-tier :class:`~.form.Form` of degree ``p``: zeros of ``dtype``
+        without ``data``, else ``data`` (a tensor is copied to the host) as a Form."""
+        from .form import Form
+        if data is None:
+            return Form(np.zeros(self.form_shape(p), dtype=dtype), degree=p, lattice=self)
+        if isinstance(data, torch.Tensor):
+            data = data.detach().cpu().numpy()
+        return Form(np.asarray(data), degree=p, lattice=self)
+
+    def random(self, p: int, generator=None, dtype=torch.float32, device='cpu'):
+        """A uniform [0, 1) p-form tensor on ``device``, drawn from ``generator``
+        (a ``torch.Generator`` on that device) or from torch's default one."""
+        return torch.rand(self.form_shape(p), generator=generator, dtype=dtype, device=device)
 
     # -- coordinates ------------------------------------------------------
 
@@ -175,6 +211,11 @@ class Lattice:
             for c in (0, 1):
                 masks.append(pair & (parity == c))
         return np.stack(masks)
+
+    @cached_property
+    def checkerboarding(self):
+        """``np.where``-style index tuples of each color's sites."""
+        return tuple(np.where(m) for m in self.checkerboard_masks)
 
     @cached_property
     def n_colors(self):
@@ -295,6 +336,30 @@ class Lattice2D(Lattice):
     def __init__(self, N):
         super().__init__(2, N)
 
+    @property
+    def nt(self):
+        return self.N
+
+    @property
+    def nx(self):
+        return self.N
+
+    @property
+    def t(self):
+        return self.coord_1d
+
+    @property
+    def x(self):
+        return self.coord_1d
+
+    @property
+    def T(self):
+        return self.coords[0]
+
+    @property
+    def X(self):
+        return self.coords[1]
+
     @cached_property
     def plaquettes(self):
         return self.sites
@@ -305,6 +370,47 @@ class Lattice2D(Lattice):
     @classmethod
     def from_h5(cls, group):
         return cls(int(np.asarray(group['N'])))
+
+    def plot_form(self, p, form, axis, label=None, cmap=None, pointsize=200,
+                  linkwidth=0.025, markerstyle='o'):
+        """Draw a p-form (an array or a tensor) on the matplotlib ``axis``:
+        0-forms as colored sites, 1-forms as colored links, 2-forms as colored
+        plaquettes.  matplotlib is imported here, not with the module."""
+        import matplotlib.pyplot as plt
+        from matplotlib import colors as mcolors
+        if isinstance(form, torch.Tensor):
+            form = form.detach().cpu().numpy()
+        form = np.asarray(form)
+        N = self.N
+        norm = mcolors.CenteredNorm()
+        cmap = cmap or plt.get_cmap('PiYG')
+        if p == 0:
+            sc = axis.scatter(*np.meshgrid(range(N), range(N), indexing='ij'),
+                              c=form[0], cmap=cmap, norm=norm, s=pointsize,
+                              marker=markerstyle, label=label)
+            plt.colorbar(sc, ax=axis)
+        elif p == 1:
+            t, x = np.meshgrid(range(N), range(N), indexing='ij')
+            cnorm = mcolors.CenteredNorm()
+            cnorm.autoscale(form)
+            for mu, (dt, dx) in enumerate(((1, 0), (0, 1))):
+                for tt in range(N):
+                    for xx in range(N):
+                        axis.plot([tt, tt + dt], [xx, xx + dx],
+                                  color=cmap(cnorm(form[mu, tt, xx])),
+                                  linewidth=1 + 100 * linkwidth)
+            axis.scatter(t, x, color='black', s=pointsize / 10, zorder=3)
+        elif p == 2:
+            im = axis.imshow(form[0].T, origin='lower', cmap=cmap, norm=norm,
+                             extent=(-0.5, N - 0.5, -0.5, N - 0.5))
+            plt.colorbar(im, ax=axis)
+        else:
+            raise ValueError(f'plot_form supports p in (0, 1, 2), got {p}')
+        axis.set_xlabel('t')
+        axis.set_ylabel('x')
+        if label:
+            axis.set_title(label)
+        return axis
 
 
 def lattice_from_h5(group):

@@ -6,13 +6,17 @@ Counterpart of :func:`supervillain_tpu.ops.pallas_sweep.neighborhood_sweeps`.
 the kernel of ``csrc/sweep.cu`` (seeded from the same generator), and any
 other device raises.  On the card, :func:`sweep_plan` picks the kernel's
 regime from N alone: a chain resident in a thread-block cluster's shared
-memory for the whole call (N <= 304), or kernels streaming it from
-device memory (larger N).  Both give the same fields bit for bit.
+memory for the whole call (even N <= 304), kernels streaming it from
+device memory (larger even N), or at odd N, where the torus needs four
+colors, streaming passes that read each site's color from a table
+(:func:`color_table`).  All give the same fields bit for bit where they
+overlap.  The kernel is D=2 only, as the TPU kernel is.
 
 The plain version is the same transition kernel as
 :class:`supervillain_tpu.generators.villain.NeighborhoodUpdate` (and, at
 ``W = inf``, ``ExactNeighborhoodUpdate``), batched over chains and vectorised
-over sites, with the random draws of each color pass as an input: from a
+over sites, in any dimension D (the eager updates run it at D >= 3, where no
+kernel exists), with the random draws of each color pass as an input: from a
 ``torch.Generator`` (:class:`SweepDraws`), the JAX package's own (tests), or the
 kernel's own Philox stream (:class:`KernelSweepDraws`), which makes it replay a
 kernel call.
@@ -29,15 +33,28 @@ import torch
 
 from . import calculus as calc
 from . import kernels, philox
-from .lattice import Lattice2D
+from .lattice import Lattice, Lattice2D
 from ..generators.base import metropolis, uniform_int_with_zero, zero_inflated_int
 
 TWO_PI = 2 * np.pi
 
 
 @lru_cache(maxsize=None)
-def lattice(N: int) -> Lattice2D:
-    return Lattice2D(N)
+def lattice(N: int, D: int = 2) -> Lattice:
+    return Lattice2D(N) if D == 2 else Lattice(D, N)
+
+
+def lattice_of(field) -> Lattice:
+    """The lattice of a batch of forms (B, C, N, ..., N)."""
+    return lattice(field.shape[-1], field.dim() - 2)
+
+
+@lru_cache(maxsize=None)
+def color_table(N: int, device) -> torch.Tensor:
+    """Each site's checkerboard color on the D=2 lattice of side N, (N, N) int8
+    on ``device``: the table the kernels read at odd N."""
+    masks = lattice(N).checkerboard_masks
+    return torch.as_tensor(np.argmax(masks, axis=0).astype(np.int8), device=device)
 
 
 #: Bytes of one site of a chain held in shared memory: φ f32, n 2×i32, r 2×f32.
@@ -72,22 +89,28 @@ class SweepPlan(NamedTuple):
         return [(rank * base + min(rank, extra), base + (rank < extra)) for rank in range(k)]
 
 
-#: The plan of every N beyond the resident regime's reach.
+#: The plan of every even N beyond the resident regime's reach.
 STREAMING_PLAN = SweepPlan('streaming', 0, 0, STREAMING_THREADS, 0)
+#: The plan of every odd N: streaming passes over a color table.
+TABLE_PLAN = SweepPlan('table', 0, 0, STREAMING_THREADS, 0)
 
 
 @lru_cache(maxsize=None)
 def sweep_plan(N: int) -> SweepPlan:
-    """The sweep kernel's plan for chains of an even ``N``, a function of N alone.
+    """The sweep kernel's plan for chains of side ``N``, a function of N alone.
 
-    Resident when some cluster size k of :data:`CLUSTER_SIZES` gives bands of
+    At odd N, :data:`TABLE_PLAN`: the torus needs four colors, and one
+    streaming launch a color reads each site's from :func:`color_table`.
+    At even N, resident when some cluster size k of :data:`CLUSTER_SIZES` gives bands of
     ``ceil(N / k)`` rows whose 20 bytes a site fit :data:`RESIDENT_SHARED_BYTES`
     (up to N = 304); the plan takes the smallest such k, and one thread per
     entry of a band's color plane up to :data:`RESIDENT_THREADS`.  Otherwise
     the chain streams from device memory, one launch per color pass.  The card
     either runs the plan or raises: the regime is never a retry."""
-    if N < 2 or N % 2:
-        raise ValueError(f'the sweep kernel needs an even N >= 2, got N={N}')
+    if N < 2:
+        raise ValueError(f'the sweep kernel needs N >= 2, got N={N}')
+    if N % 2:
+        return TABLE_PLAN
     for k in CLUSTER_SIZES:
         rows = -(-N // k)
         shared = RESIDENT_BYTES_PER_SITE * rows * N
@@ -115,12 +138,13 @@ class SweepDraws:
 
     ``phi`` is the Δφ proposal in ±interval_phi, ``fwd``/``bwd`` the integer
     Δn/W draws on each site's forward links and on the backward links indexed
-    by link position, ``z`` the Δz draw, ``u`` the Metropolis uniforms."""
+    by link position, ``z`` the Δz draw, ``u`` the Metropolis uniforms, on the
+    lattice of dimension ``D``."""
 
     def __init__(self, generator, *, B, N, interval_phi, interval_n, p_n, zmode,
-                 fdt, idt, device):
+                 fdt, idt, device, D=2):
         self.generator = generator
-        self.B, self.N = B, N
+        self.B, self.N, self.D = B, N, D
         self.interval_phi, self.interval_n, self.p_n = interval_phi, interval_n, p_n
         self.zmode = zmode
         self.fdt, self.idt, self.device = fdt, idt, device
@@ -134,8 +158,8 @@ class SweepDraws:
 
     def __call__(self, color):
         g, dev, fdt = self.generator, self.device, self.fdt
-        site = (self.B, self.N, self.N)
-        link = (self.B, 2, self.N, self.N)
+        site = (self.B,) + (self.N,) * self.D
+        link = (self.B, self.D) + site[1:]
         out = {'phi': (2 * torch.rand(site, generator=g, dtype=fdt, device=dev) - 1)
                * self.interval_phi}
         if self.zmode:
@@ -200,10 +224,11 @@ class KernelSweepDraws:
 def color_pass(phi, n, r, color, draws, *, kappa, W):
     """One checkerboard color pass on a chain batch.
 
-    ``phi`` (B, 1, N, N), ``n`` and the residual ``r = dφ - 2πn`` (B, 2, N, N),
-    ``draws`` as produced by :class:`SweepDraws`.  ``W = inf`` selects z-mode.
-    Returns the updated ``(phi, n, r)`` and the accepted count per chain."""
-    L = lattice(phi.shape[-1])
+    ``phi`` (B, 1, N, ..., N), ``n`` and the residual ``r = dφ - 2πn`` (B, D, N,
+    ..., N), ``draws`` as produced by :class:`SweepDraws`.  ``W = inf`` selects
+    z-mode.  Returns the updated ``(phi, n, r)`` and the accepted count per chain."""
+    L = lattice_of(phi)
+    D, spatial = L.D, tuple(range(-L.D, 0))
     fdt = phi.dtype
     mask = L.mask(color, phi.device)
     change_phi = torch.where(mask, draws['phi'], 0)[:, None]
@@ -215,9 +240,9 @@ def color_pass(phi, n, r, color, draws, *, kappa, W):
         fwd = W * draws['fwd']
         bwd = W * draws['bwd']
         change_n_fwd = torch.stack(
-            [torch.where(mask, fwd[:, mu], 0) for mu in range(2)], dim=1)
+            [torch.where(mask, fwd[:, mu], 0) for mu in range(D)], dim=1)
         change_n_bwd = torch.stack(
-            [torch.where(torch.roll(mask, -1, dims=mu - 2), bwd[:, mu], 0) for mu in range(2)],
+            [torch.where(torch.roll(mask, -1, dims=mu - D), bwd[:, mu], 0) for mu in range(D)],
             dim=1)
         change_n = change_n_fwd + change_n_bwd
 
@@ -234,21 +259,23 @@ def color_pass(phi, n, r, color, draws, *, kappa, W):
     else:
         applied_n = torch.stack(
             [torch.where(accept, change_n_fwd[:, mu], 0)
-             + torch.where(torch.roll(accept, -1, dims=mu - 2), change_n_bwd[:, mu], 0)
-             for mu in range(2)], dim=1)
+             + torch.where(torch.roll(accept, -1, dims=mu - D), change_n_bwd[:, mu], 0)
+             for mu in range(D)], dim=1)
 
     phi = phi + applied_phi
     n = n + applied_n
     r = r + calc.d(L, 0, applied_phi) - TWO_PI * applied_n.to(fdt)
-    return phi, n, r, accept.sum(dim=(-2, -1)).to(fdt)
+    return phi, n, r, accept.sum(dim=spatial).to(fdt)
 
 
 def plain_sweeps(phi, n, *, kappa, W, sweeps, draws):
     """``sweeps`` neighborhood sweeps in plain PyTorch, on any device.
 
-    ``draws(color)`` supplies each color pass's draws, in order.  Returns
+    ``draws(color)`` supplies each color pass's draws, in order, over the
+    lattice's ``n_colors`` colors (4 at odd N in D=2).  Any D.  Returns
     ``(phi, n, accepted, inline)`` like :func:`neighborhood_sweeps`."""
-    L = lattice(phi.shape[-1])
+    L = lattice_of(phi)
+    form = tuple(range(1, L.D + 2))
     fdt = phi.dtype
     r = calc.d(L, 0, phi) - TWO_PI * n.to(fdt)
     B = phi.shape[0]
@@ -259,9 +286,9 @@ def plain_sweeps(phi, n, *, kappa, W, sweeps, draws):
         for color in range(L.n_colors):
             phi, n, r, acc = color_pass(phi, n, r, color, draws(color), kappa=kappa, W=W)
             accepted = accepted + acc
-        sS = sS + (kappa / 2) * torch.sum(r * r, dim=(1, 2, 3)) / L.sites
+        sS = sS + (kappa / 2) * torch.sum(r * r, dim=form) / L.sites
         dn = calc.d(L, 1, n).to(fdt)
-        sw2 = sw2 + torch.sum(dn * dn, dim=(1, 2, 3)) / L.sites
+        sw2 = sw2 + torch.sum(dn * dn, dim=form) / L.sites
     return phi, n, accepted, {'ActionDensity': sS / sweeps, 'WindingSquared': sw2 / sweeps}
 
 
@@ -271,7 +298,7 @@ def neighborhood_sweeps(phi, n, *, kappa, W, interval_phi, interval_n, sweeps,
 
     Parameters
     ----------
-    phi: (B, 1, N, N) float; n: (B, 2, N, N) int
+    phi: (B, 1, N, N) float; n: (B, 2, N, N) int; any N >= 2
     W: int or ``float('inf')`` (z-mode: Δn = d(Δz), dn preserved exactly)
     generator: ``torch.Generator`` — the draws on the CPU, the kernel seed on a GPU
 
@@ -298,12 +325,14 @@ def neighborhood_sweeps(phi, n, *, kappa, W, interval_phi, interval_n, sweeps,
 def kernel_sweeps(phi, n, plan, *, kappa, W, interval_phi, interval_n, sweeps, p_n=None,
                   generator, cycles=None):
     """:func:`neighborhood_sweeps` of a CUDA batch under a given ``plan``: its
-    :func:`sweep_plan`, or (to compare the two regimes on one card) the
-    streaming plan at an N that would be resident.  ``cycles``, a (B·k, 2)
+    :func:`sweep_plan`, or (to compare the regimes on one card) the streaming
+    or table plan at an even N that would be resident.  ``cycles``, a (B·k, 2)
     int64 tensor on the card, receives for each block of a resident call the
     clock cycles its thread 0 waited at cluster barriers and its cycles in
     all."""
     B, N = kernels.require_fields(phi, n)
+    if N % 2 and plan.regime != 'table':
+        raise ValueError(f'an odd N={N} needs the table plan, not {plan.regime!r}')
     sweeps = int(sweeps)
     if sweeps < 1:
         raise ValueError(f'sweeps must be >= 1, got {sweeps}')
@@ -325,9 +354,13 @@ def kernel_sweeps(phi, n, plan, *, kappa, W, interval_phi, interval_n, sweeps, p
             *args, plan.cluster, plan.rows, plan.threads, plan.shared_bytes, stream)
     else:
         r = torch.empty(n.shape, dtype=torch.float32, device=phi.device)
+        colors, n_colors = None, 2
+        if plan.regime == 'table':
+            colors, n_colors = color_table(N, phi.device), lattice(N).n_colors
         code = lib.sv_sweeps(
             phi.data_ptr(), n.data_ptr(), phi_out.data_ptr(), n_out.data_ptr(), r.data_ptr(),
-            accepted.data_ptr(), sums.data_ptr(), *args, stream)
+            accepted.data_ptr(), sums.data_ptr(), None if colors is None else colors.data_ptr(),
+            n_colors, *args, stream)
     kernels.check(code, f'neighborhood_sweeps ({plan.regime})')
     neighborhood_sweeps.launches += 1
     per_site = sums / (N * N * sweeps)

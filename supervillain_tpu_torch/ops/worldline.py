@@ -7,9 +7,12 @@ batch runs the kernel of ``csrc/worldline.cu`` (seeded from the same
 generator), and any other device raises.
 
 One sweep is the reference's local-update stack: checkerboarded VortexUpdate
-passes (Δv on the plaquettes of color 0, then 1), CoexactUpdate passes (Δm = δt
-on the plaquettes of each color), then a WrappingUpdate pass (a shift of m along
-whole torus cycles, μ = 0 and 1).  The plain version is the same transition
+passes (Δv on the plaquettes of each color in turn: 2 colors at even N, 4 at
+odd N), CoexactUpdate passes (Δm = δt on the plaquettes of each color), then a
+WrappingUpdate pass (a shift of m along whole torus cycles, μ = 0 and 1).  The
+plain passes take any dimension D (a plaquette is then one component of a
+2-form, swept color by color and component by component, as the JAX package
+sweeps them); the kernel is D=2 only, as the TPU kernel is.  The plain version is the same transition
 kernel as :class:`supervillain_tpu.generators.worldline.VortexUpdate`,
 ``CoexactUpdate`` and ``WrappingUpdate``, batched over chains, with the link
 residual u = m − δv/_W kept beside the fields and the draws of each pass as an
@@ -28,13 +31,25 @@ import torch
 
 from . import calculus as calc
 from . import kernels, philox
-from .sweep import lattice
+from .sweep import color_table, lattice, lattice_of
 from ..device import float_dtype_of
 from ..generators.base import metropolis, uniform_nonzero_int
 
-#: The per-sweep order of the passes; a pass's index in it counts the kernel's draws.
-PASSES = (('vortex', 0), ('vortex', 1), ('coexact', 0), ('coexact', 1),
-          ('wrapping', 0), ('wrapping', 1))
+
+def passes(L):
+    """The per-sweep order of the passes on lattice ``L``, ``(kind, color,
+    component)`` for the plaquette passes and ``('wrapping', μ, 0)``: every
+    color's vortex passes (component by component), then the coexact ones,
+    then one wrapping pass per direction.  A pass's index counts the kernel's
+    draws: 6 a sweep at even N in D=2, 10 at odd N."""
+    plaquettes = [(color, comp) for color in range(L.n_colors)
+                  for comp in range(len(L.components[2]))]
+    return ([('vortex', c, k) for c, k in plaquettes] + [('coexact', c, k) for c, k in plaquettes]
+            + [('wrapping', mu, 0) for mu in range(L.D)])
+
+
+#: The order of :func:`passes` at even N in D=2, as ``(kind, color or μ)``.
+PASSES = tuple((kind, index) for kind, index, _ in passes(lattice(2)))
 
 
 def inverse_w(W):
@@ -46,14 +61,15 @@ def inverse_w(W):
 def residual(m, v, W):
     """The link residual u = m − δv/_W in the fields' float dtype."""
     fdt = float_dtype_of(v)
-    return m.to(fdt) - calc.delta(lattice(m.shape[-1]), 2, v).to(fdt) * inverse_w(W)
+    return m.to(fdt) - calc.delta(lattice_of(m), 2, v).to(fdt) * inverse_w(W)
 
 
 def action_density(m, v, kappa, W):
     """(1/2κ)Σu²/Λ per chain: the fused Worldline kernels' inline ActionDensity
     (1 minus the registry observable of that name, in D=2)."""
     u = residual(m, v, W)
-    return (0.5 / kappa) * torch.sum(u * u, dim=(-3, -2, -1)) / (m.shape[-1] ** 2)
+    L = lattice_of(m)
+    return (0.5 / kappa) * torch.sum(u * u, dim=tuple(range(-(L.D + 1), 0))) / L.sites
 
 
 def _link_terms(kappa, u, du):
@@ -61,61 +77,80 @@ def _link_terms(kappa, u, du):
     return (0.5 / kappa) * du * (2 * u + du)
 
 
-def vortex_pass(v, u, color, draws, *, kappa, W):
-    """Δv on the plaquettes of ``color``: the links change by −δ(Δv)/_W.
-    Returns ``(v, u, accepted)`` with the accepted count per chain."""
-    L = lattice(u.shape[-1])
+def on_component(values, comp, L):
+    """A 2-form (B, C(D,2), N, ..., N) holding ``values`` (B, N, ..., N) on
+    component ``comp`` and zero elsewhere."""
+    comps = len(L.components[2])
+    if comps == 1:
+        return values[:, None]
+    return torch.stack([values if k == comp else torch.zeros_like(values)
+                        for k in range(comps)], dim=1)
+
+
+def vortex_pass(v, u, color, draws, *, kappa, W, comp=0):
+    """Δv on the plaquettes of ``color`` (component ``comp``): the links change
+    by −δ(Δv)/_W.  Returns ``(v, u, accepted)`` with the accepted count per chain."""
+    L = lattice_of(u)
+    spatial = tuple(range(-L.D, 0))
     mask = L.mask(color, u.device)
-    change = torch.where(mask, draws['v'], 0)
-    du = -(calc.delta(L, 2, change[:, None]).to(u.dtype) * inverse_w(W))
-    dS = calc.coface_sum(L, 1, _link_terms(kappa, u, du))[:, 0]
+    change = on_component(torch.where(mask, draws['v'], 0), comp, L)
+    du = -(calc.delta(L, 2, change).to(u.dtype) * inverse_w(W))
+    dS = calc.coface_sum(L, 1, _link_terms(kappa, u, du))[:, comp]
     accept, _ = metropolis(draws['u'], dS)
     accept = accept & mask
-    applied = torch.where(accept, change, 0)[:, None]
+    applied = on_component(torch.where(accept, draws['v'], 0), comp, L)
     v = v + applied
     u = u - calc.delta(L, 2, applied).to(u.dtype) * inverse_w(W)
-    return v, u, accept.sum(dim=(-2, -1))
+    return v, u, accept.sum(dim=spatial)
 
 
-def coexact_pass(m, u, color, draws, *, kappa):
-    """Δm = δt with t on the plaquettes of ``color`` (δ(Δm) = 0 keeps the
-    constraint).  Returns ``(m, u, accepted)``."""
-    L = lattice(u.shape[-1])
+def coexact_pass(m, u, color, draws, *, kappa, comp=0):
+    """Δm = δt with t on the plaquettes of ``color`` (component ``comp``;
+    δ(Δm) = 0 keeps the constraint).  Returns ``(m, u, accepted)``."""
+    L = lattice_of(u)
+    spatial = tuple(range(-L.D, 0))
     mask = L.mask(color, u.device)
-    t = torch.where(mask, draws['t'], 0)
-    du = calc.delta(L, 2, t[:, None]).to(u.dtype)
-    dS = calc.coface_sum(L, 1, _link_terms(kappa, u, du))[:, 0]
+    t = on_component(torch.where(mask, draws['t'], 0), comp, L)
+    du = calc.delta(L, 2, t).to(u.dtype)
+    dS = calc.coface_sum(L, 1, _link_terms(kappa, u, du))[:, comp]
     accept, _ = metropolis(draws['u'], dS)
     accept = accept & mask
-    dm = calc.delta(L, 2, torch.where(accept, t, 0)[:, None])
-    return m + dm, u + dm.to(u.dtype), accept.sum(dim=(-2, -1))
+    dm = calc.delta(L, 2, on_component(torch.where(accept, draws['t'], 0), comp, L))
+    return m + dm, u + dm.to(u.dtype), accept.sum(dim=spatial)
 
 
-def wrapping_pass(m, u, draws0, draws1, *, kappa):
-    """Δm ∈ ±{1..interval_w} along whole cycles: for μ = 0 one proposal per
-    column x (ΔS summed over t), for μ = 1 one per row t (summed over x).  Both
-    read the residual from before the pass.  Returns ``(m, u, accepted)``."""
-    B, _, N, _ = u.shape
-    c0 = draws0['w'].to(u.dtype)[:, None, :]
-    c1 = draws1['w'].to(u.dtype)[:, :, None]
-    accept0, _ = metropolis(draws0['u'], _link_terms(kappa, u[:, 0], c0).sum(dim=-2))
-    accept1, _ = metropolis(draws1['u'], _link_terms(kappa, u[:, 1], c1).sum(dim=-1))
-    shift = torch.stack([torch.where(accept0, draws0['w'], 0)[:, None, :].expand(B, N, N),
-                         torch.where(accept1, draws1['w'], 0)[:, :, None].expand(B, N, N)], dim=1)
-    return m + shift, u + shift.to(u.dtype), accept0.sum(dim=-1) + accept1.sum(dim=-1)
+def wrapping_pass(m, u, draws, *, kappa):
+    """Δm ∈ ±{1..interval_w} along whole cycles: for each direction μ one
+    proposal per cycle, a line along μ through each of the N^(D−1) positions
+    perpendicular to it (ΔS summed along the line).  ``draws[μ]`` holds the
+    cycles' ``'w'`` and ``'u'`` (B, N^(D−1)).  Every direction reads the
+    residual from before the pass.  Returns ``(m, u, accepted)``."""
+    D = u.dim() - 2
+    B, N = u.shape[0], u.shape[-1]
+    shifts, accepted = [], 0
+    for mu in range(D):
+        perp = (B,) + tuple(1 if i == mu else N for i in range(D))
+        change = draws[mu]['w'].reshape(perp)
+        dS = _link_terms(kappa, u[:, mu], change.to(u.dtype)).sum(dim=1 + mu)
+        accept, _ = metropolis(draws[mu]['u'], dS.reshape(B, -1))
+        shifts.append(torch.where(accept.reshape(perp), change, 0).expand((B,) + u.shape[2:]))
+        accepted = accepted + accept.sum(dim=-1)
+    shift = torch.stack(shifts, dim=1)
+    return m + shift, u + shift.to(u.dtype), accepted
 
 
 class WorldlineSweepDraws:
     """Draws of one pass from a ``torch.Generator`` on the fields' device.
 
-    ``draws(kind, index)`` for a pass of :data:`PASSES`: ``{'v', 'u'}`` (vortex:
-    Δv in ±{1..interval_v}, or U(±interval_v) at W=∞), ``{'t', 'u'}`` (coexact)
-    over the plaquettes (B, N, N), and ``{'w', 'u'}`` (wrapping) over the cycles
-    (B, N); ``u`` are the Metropolis uniforms."""
+    ``draws(kind, index)`` for a pass of :func:`passes`: ``{'v', 'u'}``
+    (vortex: Δv in ±{1..interval_v}, or U(±interval_v) at W=∞), ``{'t', 'u'}``
+    (coexact) over the sites of one plaquette component (B, N, ..., N), and
+    ``{'w', 'u'}`` (wrapping) over the cycles of one direction (B, N^(D−1));
+    ``u`` are the Metropolis uniforms."""
 
     def __init__(self, generator, *, B, N, interval_v, interval_t, interval_w, winf,
-                 fdt, idt, device):
-        self.generator, self.B, self.N = generator, B, N
+                 fdt, idt, device, D=2):
+        self.generator, self.B, self.N, self.D = generator, B, N, D
         self.interval_v, self.interval_t, self.interval_w = interval_v, interval_t, interval_w
         self.winf, self.fdt, self.idt, self.device = winf, fdt, idt, device
 
@@ -127,7 +162,7 @@ class WorldlineSweepDraws:
                                    device=self.device)
 
     def __call__(self, kind, index):
-        plaquettes = (self.B, self.N, self.N)
+        plaquettes = (self.B,) + (self.N,) * self.D
         if kind == 'vortex':
             if self.winf:
                 change = (2 * self._uniform(plaquettes) - 1) * self.interval_v
@@ -136,16 +171,16 @@ class WorldlineSweepDraws:
             return {'v': change, 'u': self._uniform(plaquettes)}
         if kind == 'coexact':
             return {'t': self._nonzero(plaquettes, self.interval_t), 'u': self._uniform(plaquettes)}
-        return {'w': self._nonzero((self.B, self.N), self.interval_w),
-                'u': self._uniform((self.B, self.N))}
+        cycles = (self.B, self.N ** (self.D - 1))
+        return {'w': self._nonzero(cycles, self.interval_w), 'u': self._uniform(cycles)}
 
 
 class KernelWorldlineSweepDraws:
     """The draws of one CUDA worldline-sweep call seeded with ``seed``, as a
     draw source of :func:`plain_worldline_sweeps`: Philox-4x32-10 keyed by the
     seed's Worldline key and countered by (plaquette or cycle, chain, pass, 0),
-    pass = 6·sweep + the index in :data:`PASSES`, with the kernel's float32
-    conversions (``csrc/worldline.cu``).  Fed these, the plain version repeats
+    pass = (2·n_colors + 2)·sweep + the index in :func:`passes` (D=2), with the
+    kernel's float32 conversions (``csrc/worldline.cu``).  Fed these, the plain version repeats
     the kernel call; they can differ only where float rounding of ΔS flips a
     Metropolis decision."""
 
@@ -184,23 +219,29 @@ class KernelWorldlineSweepDraws:
 def plain_worldline_sweeps(m, v, *, kappa, W, sweeps, draws):
     """``sweeps`` worldline local-update sweeps in plain PyTorch, on any device.
 
-    ``draws(kind, index)`` supplies each pass's draws, in the order of
-    :data:`PASSES`.  Returns ``(m, v, accepted, inline)`` like
-    :func:`worldline_sweeps`."""
-    L = lattice(m.shape[-1])
+    ``draws(kind, index)`` supplies each pass's draws (index: the color, or μ
+    of a wrapping pass), in the order of :func:`passes`: every plaquette color of the lattice (4 at odd N in D=2),
+    in any D.  Returns ``(m, v, accepted, inline)`` like :func:`worldline_sweeps`."""
+    L = lattice_of(m)
     u = residual(m, v, W)
     accepted = torch.zeros(m.shape[0], dtype=u.dtype, device=m.device)
     sS = torch.zeros_like(accepted)
+    order = passes(L)
     for _ in range(sweeps):
-        for color in range(2):
-            v, u, acc = vortex_pass(v, u, color, draws('vortex', color), kappa=kappa, W=W)
+        wrapping = []
+        for kind, index, comp in order:
+            if kind == 'vortex':
+                v, u, acc = vortex_pass(v, u, index, draws(kind, index), kappa=kappa, W=W,
+                                        comp=comp)
+            elif kind == 'coexact':
+                m, u, acc = coexact_pass(m, u, index, draws(kind, index), kappa=kappa, comp=comp)
+            else:
+                wrapping.append(draws(kind, index))
+                continue
             accepted = accepted + acc
-        for color in range(2):
-            m, u, acc = coexact_pass(m, u, color, draws('coexact', color), kappa=kappa)
-            accepted = accepted + acc
-        m, u, acc = wrapping_pass(m, u, draws('wrapping', 0), draws('wrapping', 1), kappa=kappa)
+        m, u, acc = wrapping_pass(m, u, wrapping, kappa=kappa)
         accepted = accepted + acc
-        sS = sS + (0.5 / kappa) * torch.sum(u * u, dim=(1, 2, 3)) / L.sites
+        sS = sS + (0.5 / kappa) * torch.sum(u * u, dim=tuple(range(1, L.D + 2))) / L.sites
     return m, v, accepted, {'ActionDensity': sS / sweeps}
 
 
@@ -209,8 +250,9 @@ MAX_CHAINS = 65535
 
 
 def sweep_scratch(m, v):
-    """Scratch of one kernel call on (m, v), in the kernel's private layout
-    (each field split by site color into two planes of N rows of N/2 sites):
+    """Scratch of one kernel call on (m, v), in the kernel's layout of the call
+    (at even N each field split by site color into two planes of N rows of N/2
+    sites; at odd N the public one):
     v, T (the summed coexact changes of each plaquette, int32) and the
     residual u (float32); and per cycle (B, 2N), the summed wrapping shifts
     (int32) and Σu² (double)."""
@@ -228,7 +270,7 @@ def worldline_sweeps(m, v, *, kappa, W, interval_v=1, interval_t=1, interval_w=1
 
     Parameters
     ----------
-    m: (B, 2, N, N) int; v: (B, 1, N, N) int (finite W) or float (W = inf)
+    m: (B, 2, N, N) int; v: (B, 1, N, N) int (finite W) or float (W = inf); any N >= 2
     interval_v: Δv range (a float width at W = inf); interval_t, interval_w: Δm ranges
     generator: ``torch.Generator`` — the draws on the CPU, the kernel seed on a GPU
 
@@ -262,10 +304,13 @@ def worldline_sweeps(m, v, *, kappa, W, interval_v=1, interval_t=1, interval_w=1
     scratch = sweep_scratch(m, v)
     accepted = torch.empty(B, dtype=torch.int32, device=m.device)
     sums = torch.empty(B, dtype=torch.float64, device=m.device)
+    colors = color_table(N, m.device) if N % 2 else None
     entry = lib.sv_worldline_sweeps_winf if winf else lib.sv_worldline_sweeps
     code = entry(m.data_ptr(), v.data_ptr(), m_out.data_ptr(), v_out.data_ptr(),
                  *(scratch[k].data_ptr() for k in ('v', 't', 'u', 'shifts', 'squares')),
-                 accepted.data_ptr(), sums.data_ptr(), B, N, sweeps, float(0.5 / kappa),
+                 accepted.data_ptr(), sums.data_ptr(),
+                 None if colors is None else colors.data_ptr(), lattice(N).n_colors,
+                 B, N, sweeps, float(0.5 / kappa),
                  float(inverse_w(W)), float(interval_v), int(interval_t), int(interval_w),
                  kernels.seed_from(generator), kernels.stream_handle(m.device))
     kernels.check(code, 'worldline_sweeps')

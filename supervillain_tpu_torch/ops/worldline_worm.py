@@ -6,7 +6,8 @@ Counterpart of :func:`supervillain_tpu.ops.pallas_worldline_hammer.worldline_wor
 batch runs the kernel of ``csrc/worldline_worm.cu``, and any other device raises.
 
 The plain version is the move rule of
-:class:`supervillain_tpu.generators.worldline.ClassicWorm`, advancing all
+:class:`supervillain_tpu.generators.worldline.ClassicWorm` in any dimension D
+(the eager worm runs it at D >= 3, where no kernel exists), advancing all
 chains one move per iteration (a chain whose worm has closed stops drawing),
 with the draws coming from a draw source: a ``torch.Generator``
 (:class:`WorldlineWormDraws`), the JAX package's own (tests), or the kernel's
@@ -20,37 +21,40 @@ import torch
 
 from . import calculus as calc
 from . import kernels, philox
-from .sweep import lattice
+from .sweep import lattice_of
 from .worldline import inverse_w
 from ..device import float_dtype_of
 
-# Head moves +e0, +e1, −e0, −e1 in (t, x); the crossed link's direction; Δm's sign.
-_MOVES = ((1, 0), (0, 1), (-1, 0), (0, -1))
-_AXIS = (0, 1, 0, 1)
-_SIGN = (1, 1, -1, -1)
-#: Probability of the close move when head == tail: 1/(2D+1) in D=2.
-CLOSE = 0.2
+
+def close_probability(D):
+    """Probability of the close move when head == tail: 1/(2D+1)."""
+    return 1 / (2 * D + 1)
+
+
+#: The close probability in D=2, where the kernel runs.
+CLOSE = close_probability(2)
 
 
 class WorldlineWormDraws:
     """Draw source of :func:`plain_worldline_worms` from a ``torch.Generator``.
 
-    ``start()`` gives each chain's orientation (B,) and tail (B, 2); ``move()``
-    each chain's close uniform, move choice in 0..3 and Metropolis uniform (B,),
-    one call per move."""
+    ``start()`` gives each chain's orientation (B,) and tail (B, D); ``move()``
+    each chain's close uniform, move choice in 0..2D−1 and Metropolis uniform
+    (B,), one call per move."""
 
-    def __init__(self, generator, *, B, N, fdt, device):
+    def __init__(self, generator, *, B, N, fdt, device, D=2):
         self.generator, self.B, self.N, self.fdt, self.device = generator, B, N, fdt, device
+        self.D = D
 
     def start(self):
         g, B, dev = self.generator, self.B, self.device
         orientation = 2 * torch.randint(0, 2, (B,), generator=g, device=dev) - 1
-        return orientation, torch.randint(0, self.N, (B, 2), generator=g, device=dev)
+        return orientation, torch.randint(0, self.N, (B, self.D), generator=g, device=dev)
 
     def move(self):
         g, B, dev = self.generator, self.B, self.device
         u = torch.rand((2, B), generator=g, dtype=self.fdt, device=dev)
-        return u[0], torch.randint(0, 4, (B,), generator=g, device=dev), u[1]
+        return u[0], torch.randint(0, 2 * self.D, (B,), generator=g, device=dev), u[1]
 
 
 class KernelWorldlineWormDraws:
@@ -92,21 +96,26 @@ class KernelWorldlineWormDraws:
 
 
 def plain_worldline_worms(m, v, *, kappa, W, worms, max_worm_moves, draws):
-    """``worms`` worldline worms per chain in plain PyTorch, on any device.
+    """``worms`` worldline worms per chain in plain PyTorch, on any device and
+    in any D: the head moves ±e_k (choices 0..D−1 forward, D..2D−1 back), and
+    closes with probability 1/(2D+1) at the tail.
 
     A worm still open after ``max_worm_moves`` moves is rolled back (an open
     worm breaks δm = 0 at every W).  Returns ``(m, hist, length, truncated)``
     like :func:`worldline_worms`."""
-    B, _, N, _ = m.shape
-    L = lattice(N)
+    L = lattice_of(m)
+    B, N, D = m.shape[0], L.N, L.D
     dev, fdt = m.device, float_dtype_of(v)
     m = m.clone()
     dvw = calc.delta(L, 2, v).to(fdt) * inverse_w(W)
-    moves = torch.tensor(_MOVES, device=dev)
-    axis = torch.tensor(_AXIS, device=dev)
-    sign = torch.tensor(_SIGN, dtype=m.dtype, device=dev)
+    eye = torch.eye(D, dtype=torch.int64, device=dev)
+    moves = torch.cat([eye, -eye])
+    axis = torch.arange(2 * D, device=dev) % D
+    sign = torch.cat([torch.ones(D, dtype=m.dtype, device=dev),
+                      -torch.ones(D, dtype=m.dtype, device=dev)])
+    close = close_probability(D)
     chains = torch.arange(B, device=dev)
-    hist = torch.zeros((B, N, N), dtype=fdt, device=dev)
+    hist = torch.zeros((B,) + L.dims, dtype=fdt, device=dev)
     truncated = torch.zeros(B, dtype=fdt, device=dev)
     rollback = max_worm_moves is not None
 
@@ -119,10 +128,10 @@ def plain_worldline_worms(m, v, *, kappa, W, worms, max_worm_moves, draws):
         t = 0
         while (max_worm_moves is None or t < max_worm_moves) and bool(open_.any()):
             u_close, choice, u_accept = draws.move()
-            close_now = (head == tail).all(dim=-1) & (u_close < CLOSE)
+            close_now = (head == tail).all(dim=-1) & (u_close < close)
             next_head = torch.remainder(head + moves[choice], N)
-            lpos = torch.where((choice < 2)[:, None], head, next_head)
-            at = (chains, axis[choice], lpos[:, 0], lpos[:, 1])
+            lpos = torch.where((choice < D)[:, None], head, next_head)
+            at = (chains, axis[choice], *lpos.unbind(-1))
             link = m[at].to(fdt) - dvw[at]
             dm = change_m[chains, choice]
             dmf = dm.to(fdt)
@@ -132,14 +141,14 @@ def plain_worldline_worms(m, v, *, kappa, W, worms, max_worm_moves, draws):
             m[at] = m[at] + torch.where(accept, dm, 0)
             head = torch.where(accept[:, None], next_head, head)
             disp = torch.remainder(head - tail, N)
-            tally = (chains, disp[:, 0], disp[:, 1])
+            tally = (chains, *disp.unbind(-1))
             hist[tally] = hist[tally] + (open_ & ~close_now).to(fdt)
             open_ = open_ & ~close_now
             t += 1
         if rollback:
-            m = torch.where(open_[:, None, None, None], start, m)
+            m = torch.where(open_.reshape((B,) + (1,) * (D + 1)), start, m)
             truncated = truncated + open_.to(fdt)
-    return m, hist, hist.sum(dim=(1, 2)), truncated
+    return m, hist, hist.sum(dim=tuple(range(1, D + 1))), truncated
 
 
 def worldline_worms(m, v, *, kappa, W, worms=1, max_worm_moves=None, generator):

@@ -15,9 +15,9 @@ import supervillain_tpu_torch as tsv
 from supervillain_tpu_torch.interop import villain_action, worldline_action
 from supervillain_tpu_torch.ops import calculus, kernels
 from supervillain_tpu_torch.ops.hammer import hammer_sweeps
-from supervillain_tpu_torch.ops.sweep import (STREAMING_PLAN, KernelSweepDraws, SweepPlan,
-                                              kernel_sweeps, lattice, neighborhood_sweeps,
-                                              plain_sweeps, sweep_plan)
+from supervillain_tpu_torch.ops.sweep import (STREAMING_PLAN, TABLE_PLAN, KernelSweepDraws,
+                                              SweepPlan, kernel_sweeps, lattice,
+                                              neighborhood_sweeps, plain_sweeps, sweep_plan)
 from supervillain_tpu_torch.ops.worm import KernelWormDraws, classic_worms, plain_worms
 from supervillain_tpu_torch.ops.worldline import (KernelWorldlineSweepDraws,
                                                   plain_worldline_sweeps, worldline_sweeps)
@@ -47,8 +47,11 @@ def _sweeps(phi, n, W, sweeps, seed):
 
 def test_kernels_reject_what_they_do_not_take(cuda):
     phi, n = _cold(2, 6, cuda)
-    with pytest.raises(ValueError, match='even N'):
-        _sweeps(*_cold(2, 5, cuda), 1, 1, 0)
+    with pytest.raises(ValueError, match='N >= 2'):
+        _sweeps(*_cold(2, 1, cuda), 1, 1, 0)
+    with pytest.raises(ValueError, match='table plan'):
+        kernel_sweeps(*_cold(2, 5, cuda), STREAMING_PLAN, kappa=0.4, W=1, interval_phi=1.0,
+                      interval_n=1, sweeps=1, generator=torch.Generator())
     with pytest.raises(TypeError, match='float32'):
         _sweeps(phi.double(), n, 1, 1, 0)
     with pytest.raises(ValueError, match='contiguous'):
@@ -271,8 +274,8 @@ def _worldline_sweep_draws(seed, B, N, W, device):
 
 def test_worldline_kernels_reject_what_they_do_not_take(cuda):
     m, v = _cold_worldline(2, 6, 2, cuda)
-    with pytest.raises(ValueError, match='even N'):
-        _worldline_sweeps(*_cold_worldline(2, 5, 2, cuda), 2, 1, 0)
+    with pytest.raises(ValueError, match='N >= 2'):
+        _worldline_sweeps(*_cold_worldline(2, 1, 2, cuda), 2, 1, 0)
     with pytest.raises(TypeError, match='int32 m'):
         _worldline_sweeps(m, v.float(), 2, 1, 0)
     with pytest.raises(TypeError, match='int32 m'):
@@ -443,6 +446,12 @@ def _relative(card, cpu):
     return float(np.abs(card - cpu).max() / max(np.abs(cpu).max(), 1e-300))
 
 
+def d2_names(registry):
+    """A registry's names but the D=4-only topological quantities."""
+    return sorted(name for name, cls in registry.items()
+                  if cls.__module__ != tsv.observables.topological.__name__)
+
+
 @pytest.mark.parametrize('action', ['Villain', 'Worldline'])
 def test_measurements_on_the_card_match_the_cpu(cuda, action):
     """Every observable, every resampled observable and every derived quantity,
@@ -456,8 +465,8 @@ def test_measurements_on_the_card_match_the_cpu(cuda, action):
         boot = tsv.Bootstrap(e, draws=50, seed=3)
         values[device] = {**e.measure(),
                           **{f'Bootstrap.{n}': getattr(boot, n)
-                             for n in sorted(tsv.observables.registry)
-                             + sorted(tsv.observables.derived_registry)}}
+                             for n in d2_names(tsv.observables.registry)
+                             + d2_names(tsv.observables.derived_registry)}}
     assert set(values['cuda']) == set(values['cpu'])
     diffs = {n: _relative(values['cuda'][n], values['cpu'][n]) for n in values['cpu']}
     bad = {n: d for n, d in diffs.items() if not d <= MEASURE_RTOL}
@@ -564,3 +573,81 @@ def test_hammer_fleet_runs_on_the_card(cuda, action, W):
         assert v.shape[:2] == (3, 16) and np.isfinite(v).all(), k
     assert fleet.stats['ClassicWorm']['sweeps'] > 0
     assert np.isfinite(fleet.pooled_ensemble(1).ActionDensity).all()
+
+
+# -- odd N: four colors, the color-table passes of B1 and B4 -------------------
+
+ODD_N = [3, 5, 7, 11]
+
+
+@pytest.mark.parametrize('W', [1, 2, float('inf')])
+@pytest.mark.parametrize('N', ODD_N)
+def test_odd_n_kernels_repeat_their_plain_versions_on_the_same_draws(cuda, N, W):
+    """At odd N the sweep kernel (table plan) and the worm kernel repeat their
+    plain versions fed the kernels' Philox draws, which number a sweep's
+    passes n_colors·sweep + color; dn ≡ 0 (mod W) and, at W=∞, dn = 0 bitwise."""
+    assert sweep_plan(N).regime == 'table'
+    B, kappa = 64, 0.4
+    phi = (torch.rand((B, 1, N, N), generator=torch.Generator().manual_seed(1)) - 0.5).to(cuda)
+    _, n = _cold(B, N, cuda)
+    seed = kernels.seed_from(torch.Generator().manual_seed(5))
+    got = _sweeps(phi, n, W, 6, 5)
+    draws = KernelSweepDraws(seed, B=B, N=N, interval_phi=math.pi, interval_n=1, p_n=0.3,
+                             zmode=W == float('inf'), fdt=torch.float32, idt=torch.int32,
+                             device=cuda)
+    want = plain_sweeps(phi, n, kappa=kappa, W=W, sweeps=6, draws=draws)
+    assert draws.passes == 6 * lattice(N).n_colors
+    assert float((got[0] != want[0]).float().mean()) <= 1e-3
+    assert float((got[1] != want[1]).float().mean()) <= 1e-3
+    assert float(got[2].sum()) > 0
+    dn = calculus.d(lattice(N), 1, got[1])
+    assert bool(((dn == 0) if W == float('inf') else (dn % W == 0)).all())
+
+    cap = None if W == 1 else 16
+    worm = classic_worms(got[0], got[1], kappa=kappa, W=W, worms=4, max_worm_moves=cap,
+                         generator=torch.Generator().manual_seed(6))
+    want = plain_worms(got[0], got[1], kappa=kappa, W=W, worms=4, max_worm_moves=cap,
+                       draws=KernelWormDraws(kernels.seed_from(torch.Generator().manual_seed(6)),
+                                             B=B, N=N, device=cuda))
+    same = [(a == b).reshape(B, -1).all(dim=1) for a, b in zip(worm, want)]
+    assert float(torch.stack(same).all(dim=0).float().mean()) >= 1 - 1 / B
+
+
+@pytest.mark.parametrize('W', [1, 2, float('inf')])
+@pytest.mark.parametrize('N', ODD_N)
+def test_odd_n_worldline_kernels_repeat_their_plain_versions_on_the_same_draws(cuda, N, W):
+    """At odd N the Worldline sweep kernel (public layout, color table) and worm
+    kernel repeat their plain versions on the kernels' draws; δm = 0 bitwise."""
+    B, kappa = 64, 0.5
+    m, v = _cold_worldline(B, N, W, cuda)
+    m, v, _, _ = _worldline_sweeps(m, v, W, 20, 4)
+    got = _worldline_sweeps(m, v, W, 6, 5)
+    draws = _worldline_sweep_draws(5, B, N, W, cuda)
+    want = plain_worldline_sweeps(m, v, kappa=kappa, W=W, sweeps=6, draws=draws)
+    assert draws.passes == 6 * (2 * lattice(N).n_colors + 2)
+    assert float((got[0] != want[0]).float().mean()) <= 1e-3
+    assert float((got[1] != want[1]).float().mean()) <= 1e-3
+    assert bool((calculus.delta(lattice(N), 1, got[0]) == 0).all())
+    torch.testing.assert_close(got[3]['ActionDensity'], want[3]['ActionDensity'],
+                               rtol=1e-4, atol=0)
+    worm = worldline_worms(got[0], got[1], kappa=kappa, W=W, worms=4, max_worm_moves=64,
+                           generator=torch.Generator().manual_seed(6))
+    want = plain_worldline_worms(
+        got[0], got[1], kappa=kappa, W=W, worms=4, max_worm_moves=64,
+        draws=KernelWorldlineWormDraws(kernels.seed_from(torch.Generator().manual_seed(6)),
+                                       B=B, N=N, device=cuda))
+    same = [(a == b).reshape(B, -1).all(dim=1) for a, b in zip(worm, want)]
+    assert float(torch.stack(same).all(dim=0).float().mean()) >= 1 - 1 / B
+    assert bool((calculus.delta(lattice(N), 1, worm[0]) == 0).all())
+
+
+@pytest.mark.parametrize('N', [6, 256])
+def test_table_plan_at_even_n_agrees_with_the_kernels_plan_bit_for_bit(cuda, N):
+    """The color-table passes, run at an even N on its two-color table, give the
+    φ, n and accepted counts of the resident regime bit for bit."""
+    for mode in SWEEP_MODES:
+        phi, n = _warm(4, N, mode[0], 7, cuda)
+        planned = _plan_sweeps(phi, n, sweep_plan(N), mode, 3, 11)
+        table = _plan_sweeps(phi, n, TABLE_PLAN, mode, 3, 11)
+        for a, b in zip(planned[:3], table[:3]):
+            assert torch.equal(a, b)

@@ -39,6 +39,8 @@ SMOKE = [
                        '--kappas', '0.5', '--h5', '{tmp}/fleet.h5']),
     ('bkt-scan.py', ['--L', '8', '--chains', '4', '--therm-sweeps', '20', '--records', '3',
                      '--thin', '4', '--kappas', '0.6', '--W', '2']),
+    ('d4-topology.py', ['--N', '3', '--chains', '4', '--steps', '6', '--cut', '2',
+                        '--kappas', '0.4', '--h5', '{tmp}/d4.h5']),
 ] + list(TOY.items())
 
 SCRIPTS = sorted({script for script, _ in SMOKE})
@@ -50,7 +52,7 @@ def run_script(name, argv, monkeypatch):
 
 
 def test_every_script_is_ported():
-    assert len(SCRIPTS) == 11
+    assert len(SCRIPTS) == 12
     assert sorted(p.name for p in EXAMPLES.glob('*.py')) == SCRIPTS
 
 

@@ -5,7 +5,7 @@ import pytest
 
 from supervillain_tpu_torch.ops.sweep import (CLUSTER_SIZES, RESIDENT_BYTES_PER_SITE,
                                               RESIDENT_SHARED_BYTES, RESIDENT_THREADS,
-                                              sweep_plan)
+                                              TABLE_PLAN, sweep_plan)
 
 EVEN_N = range(2, 1025, 2)
 BLOCK_SHARED_BYTES = 232_448    # shared memory one H100 block may use (dynamic + static)
@@ -58,7 +58,16 @@ def test_regime_switches_where_the_byte_count_says():
     assert sweep_plan(512).regime == 'streaming'
 
 
-@pytest.mark.parametrize('N', [0, 5, -2])
+@pytest.mark.parametrize('N', [0, 1, -2])
 def test_plan_rejects_what_the_kernel_does_not_take(N):
-    with pytest.raises(ValueError, match='even N'):
+    with pytest.raises(ValueError, match='N >= 2'):
         sweep_plan(N)
+
+
+@pytest.mark.parametrize('N', [3, 5, 7, 11, 255, 513, 1025])
+def test_odd_n_runs_the_table_plan(N):
+    """An odd N, whose torus needs four colors, streams one launch a color over
+    a color table: no resident band, no cluster."""
+    assert sweep_plan(N) == TABLE_PLAN
+    assert (TABLE_PLAN.cluster, TABLE_PLAN.rows, TABLE_PLAN.shared_bytes) == (0, 0, 0)
+    assert TABLE_PLAN.bands(N) == []
