@@ -127,15 +127,15 @@ E4. ``bkt-scan.py`` at its defaults (L=256, 32 chains, W=1, B1 resident)
     ``results/bkt-scan-L256.log``, χ_S/L^(D−2Δ) printed;
 E5. ``pod-fleet.py --thin 64 --steps 96`` (10240 chains, L=64, κ=0.74): its
     ActionDensity and WindingSquared against ``results/pod-fleet.log``, and
-    its site-updates/s;
+    its site-updates/s; run again with ``--mesh``, the same fleet bit for bit;
 E6. ``self-dual-fused.py --L 64`` (W=∞, κ=1/2π): the duality pull, and each
     side's ActionDensity against 1/2; B1 in z-mode, B2, B4 and B5 launched;
 E7. ``winf-line.py --Ls 64 128`` at κ=1/π: η_eff against the exact 1/(2πκ);
 E8. ``end-to-end.py`` (Villain, and Worldline at W=2), ``action-comparison.py``,
     the two algorithm comparisons, ``no-vortices.py``, ``why-measure-inline.py``
-    (at an even N and E8_CONFIGURATIONS) and ``fleet-scan.py``: each exits 0,
-    each comparison of two estimates of one quantity within 4, and B1, B2 and
-    B5 launched;
+    (at an even N and E8_CONFIGURATIONS) and ``fleet-scan.py`` (also with
+    ``--mesh``, the same fleets bit for bit): each exits 0, each comparison of
+    two estimates of one quantity within 4, and B1, B2 and B5 launched;
 
 and for odd N, where the torus needs four colors (B1 and B4 read each site's
 color from a table; B2 and B5 index any N):
@@ -170,7 +170,30 @@ D2. ``d4-topology.py`` at the shape of each committed log (N=8, 32 chains,
 D3. the generic Worldline Hammer at D = 3 and 4 (N=8, κ=0.2, W=1, 32 chains
     on the card, 8 on the CPU): δm = 0 bitwise on every kept draw, finite
     ActionDensity, per-chain means of card and CPU within |pull| < 4;
-D4. ``benchmark/dimension.py`` at D=4, N=8, 32 to 8192 chains: site-updates/s.
+D4. ``benchmark/dimension.py`` at D=4, N=8, 32 to 8192 chains: site-updates/s;
+
+and for the chain mesh (``parallel/mesh.py``, ``parallel/distributed.py``),
+where every kernel counts its Philox stream from its batch's global first
+chain, ``chain0``:
+
+P1. B1 (resident at N=256, table at N=255), B2, B4 (N=256 and 255) and B5 on
+    512 chains, one call each, against the same calls on the shards [0, 128)
+    and [128, 512) with chain0 = 0 and 128: every output row equal bit for
+    bit; the second shard against its plain version fed the Philox draws from
+    chain0 = 128, under phase 7's bounds;
+P2. ``sample_fused_fleet`` with the Villain Hammer (W=1) and the Worldline
+    Hammer (W=2) at the main path's width (3 records), and ``sample_fleet``
+    with the generic Villain Hammer(fleet=True) at L=64 (1024 chains, W=2),
+    each over cuda:0 alone (the unsharded reference), with mesh=None, over
+    ``chain_mesh()`` and over the card listed 4 times: equal columns, stats
+    and final bit for bit, and each one's seconds per record;
+P3. two processes over gloo (``torch.multiprocessing``, file init) on the one
+    card, each with its 256 chains of P2's fused fleets: both return P2's
+    unsharded fleets bit for bit (digests), with no collective inside the
+    records and one gather after them, joined within P3_LIMIT seconds;
+P4. ``python -m supervillain_tpu_torch.benchmark.scaling``: its one-card row
+    (no efficiency on one card) and its collective audit (0 inside the
+    records), with the card's name and power limit.
 
 The next-to-last line is a JSON object describing each kernel (its
 ``max_abs_err`` from the same-draws phases, its launches on its main path, its
@@ -1989,13 +2012,24 @@ def phase_scan_l256(torch, card):
     return launches
 
 
+def require_same_fleets(label, a, b):
+    """Two runs of a script, without and with --mesh, give the same fleet."""
+    diff = fleet_differences(a, b)
+    say(f'    {label} with --mesh against without: '
+        f'{"equal bit for bit" if not diff else "differs in " + ", ".join(diff)}; mesh {b.mesh}')
+    require(not diff, f'{label}: --mesh changes the fleet: {diff}')
+
+
 def phase_pod_fleet(torch, card):
-    """E5: pod-fleet.py against results/pod-fleet.log."""
+    """E5: pod-fleet.py against results/pod-fleet.log, and with --mesh the same fleet."""
     log = read_fleet_log(repo_root() / RESULTS / 'pod-fleet.log')
     say('== phase E5: pod-fleet.py --thin 64 --steps 96 (10240 chains, L=64, κ=0.74, therm 2048) '
-        'against results/pod-fleet.log')
-    (g,), launches = script_phase(torch, card, 'E5',
-                                  [('pod-fleet.py', ['--thin', 64, '--steps', 96])], ('sweep',))
+        'against results/pod-fleet.log, and with --mesh')
+    argv = ['--thin', 64, '--steps', 96]
+    (g, gm), launches = script_phase(torch, card, 'E5', [('pod-fleet.py', argv),
+                                                          ('pod-fleet.py', argv + ['--mesh'])],
+                                     ('sweep',))
+    require_same_fleets('E5', g['result']['fleet'], gm['result']['fleet'])
     result = g['result']
     say(f'    E5: {result["site_updates_per_second"]!r} site-updates/s over '
         f'{result["seconds"]!r} s (card: {card})')
@@ -2039,10 +2073,14 @@ def phase_small_scripts(torch, card):
             ('worldline-algorithm-comparison.py', ['--N', 6, '--configurations', C]),
             ('no-vortices.py', ['--N', 12, '--configurations', C]),
             ('why-measure-inline.py', ['--N', 8, '--configurations', C]),
-            ('fleet-scan.py', ['--steps', E8_FLEET_STEPS, '--cut', E8_FLEET_CUT])]
+            ('fleet-scan.py', ['--steps', E8_FLEET_STEPS, '--cut', E8_FLEET_CUT]),
+            ('fleet-scan.py', ['--steps', E8_FLEET_STEPS, '--cut', E8_FLEET_CUT, '--mesh'])]
     say(f'== phase E8: the eager-generator scripts ({C} configurations, even N) and '
-        f'fleet-scan.py ({E8_FLEET_STEPS} records, cut {E8_FLEET_CUT})')
+        f'fleet-scan.py ({E8_FLEET_STEPS} records, cut {E8_FLEET_CUT}), and with --mesh')
     results, launches = script_phase(torch, card, 'E8', runs, ('sweep', 'worm', 'worldline_worm'))
+    plain, meshed = results[-2]['results'], results[-1]['results']
+    for kappa in plain:
+        require_same_fleets(f'E8 fleet-scan.py κ={kappa}', plain[kappa][0], meshed[kappa][0])
     gate_pulls('E8', eager_script_pulls(runs, results))
     return launches
 
@@ -2547,6 +2585,287 @@ def phase_dimension(torch, card):
     return curve
 
 
+# -- the chain mesh: global chain offsets, sharded fleets, processes ------------
+
+#: Chains of P1's kernel calls, and where P1 cuts them into two shards.
+OFFSET_CHAINS, OFFSET_CUT = 512, 128
+#: P2's and P3's fused fleets: the main path's width, 3 records.
+MESH_FLEETS = {'Villain Hammer W=1': ('Villain', 1), 'Worldline Hammer W=2': ('Worldline', 2)}
+MESH_RECORDS = 3
+#: Seconds P3's two ranks may take before the phase fails.
+P3_LIMIT = 300
+
+
+def flat_outputs(out):
+    """A kernel wrapper's outputs as a list of tensors (inline dicts by key)."""
+    tensors = []
+    for x in out:
+        tensors += [x[k] for k in sorted(x)] if isinstance(x, dict) else [x]
+    return tensors
+
+
+def fleet_differences(a, b):
+    """The names of the columns, final fields and stats where two fleets differ."""
+    out = [f'columns {k}' for k in sorted(set(a.columns) | set(b.columns))
+           if k not in a.columns or k not in b.columns
+           or not np.array_equal(a.columns[k], b.columns[k])]
+    out += [f'final {k}' for k in sorted(set(a.final) | set(b.final))
+            if k not in a.final or k not in b.final or not np.array_equal(a.final[k], b.final[k])]
+    return out + (['stats'] if a.stats != b.stats else [])
+
+
+def fleet_digest(fleet):
+    """SHA-256 prefix of a fleet's columns, final fields and stats, in key order."""
+    import hashlib
+    h = hashlib.sha256()
+    for part in (fleet.columns, fleet.final):
+        for k in sorted(part):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(part[k]).tobytes())
+    h.update(repr(sorted((t, sorted(s.items())) for t, s in fleet.stats.items())).encode())
+    return h.hexdigest()[:16]
+
+
+def mesh_fused_fleet(name, mesh, progress=None):
+    """One of P2's fused fleets: L=256, 512 chains, κ=0.5, thin=50, one worm a
+    record (capped at 64·N²), MESH_RECORDS records."""
+    import supervillain_tpu_torch as sv
+    action, W = MESH_FLEETS[name]
+    S = getattr(sv, action)(sv.Lattice2D(256), 0.5, W=W)
+    return sv.sample_fused_fleet(S, chains=512, steps=MESH_RECORDS, thin=50, worms=1,
+                                 seed=20261017, mesh=mesh, progress=progress)
+
+
+def collective_watch(calls, seen):
+    """A ``progress`` wrapper that notes the collective count before each record
+    and after the last."""
+    def watch(records):
+        for i in records:
+            seen.append(calls())
+            yield i
+        seen.append(calls())
+    return watch
+
+
+def phase_chain_offsets(torch, card):
+    """P1: each kernel on 512 chains, then on the shards [0, 128) and [128, 512)
+    with chain0 = 0 and 128: every row equal bit for bit; the second shard
+    against its plain version fed the Philox draws from chain0 = 128."""
+    from supervillain_tpu_torch.ops import kernels
+    from supervillain_tpu_torch.ops.sweep import (KernelSweepDraws, neighborhood_sweeps,
+                                                  plain_sweeps, sweep_plan)
+    from supervillain_tpu_torch.ops.worldline import (KernelWorldlineSweepDraws,
+                                                      plain_worldline_sweeps, worldline_sweeps)
+    from supervillain_tpu_torch.ops.worldline_worm import (KernelWorldlineWormDraws,
+                                                           plain_worldline_worms, worldline_worms)
+    from supervillain_tpu_torch.ops.worm import KernelWormDraws, classic_worms, plain_worms
+
+    B, cut = OFFSET_CHAINS, OFFSET_CUT
+    say(f'== phase P1: global chain offsets: each kernel on {B} chains against the shards '
+        f'[0, {cut}) and [{cut}, {B}) with chain0 = 0 and {cut}, and the second shard against '
+        f'its plain version on the Philox draws from chain0 = {cut}')
+    t0 = time.perf_counter()
+    err = {}
+
+    def sharded(name, fn, fields, seed):
+        """fn on the whole batch and on both shards, one seed; every row equal."""
+        whole = fn(*fields, generator=torch.Generator().manual_seed(seed))
+        parts = [fn(*(f[lo:hi] for f in fields), generator=torch.Generator().manual_seed(seed),
+                    chain0=lo) for lo, hi in ((0, cut), (cut, B))]
+        w, (p0, p1) = flat_outputs(whole), [flat_outputs(p) for p in parts]
+        equal = all(torch.equal(a[:cut], b) and torch.equal(a[cut:], c)
+                    for a, b, c in zip(w, p0, p1))
+        say(f'  {name}: {len(w)} outputs of the shards equal to the whole call\'s rows: {equal}')
+        require(equal, f'P1 {name}: a shard differs from its rows of the whole call')
+        return whole, parts[1]
+
+    def seed_of(s):
+        return kernels.seed_from(torch.Generator().manual_seed(s))
+
+    host = torch.Generator().manual_seed(2026)
+    for N in (256, 255):
+        plan = sweep_plan(N)
+        phi = ((torch.rand((B, 1, N, N), generator=host) - 0.5) * 2 * math.pi).cuda()
+        n = torch.zeros((B, 2, N, N), dtype=torch.int32, device='cuda')
+        sweep = dict(kappa=0.5, W=2, interval_phi=math.pi, interval_n=1, sweeps=2)
+        whole, part = sharded(f'B1 N={N} ({plan.regime})', lambda *f, **k: neighborhood_sweeps(
+            *f, **sweep, **k), (phi, n), 30 + N)
+        draws = KernelSweepDraws(seed_of(30 + N), B=B - cut, N=N, interval_phi=math.pi,
+                                 interval_n=1, p_n=None, zmode=False, fdt=torch.float32,
+                                 idt=torch.int32, device='cuda', chain0=cut)
+        want = plain_sweeps(phi[cut:], n[cut:], kappa=0.5, W=2, sweeps=2, draws=draws)
+        err['sweep'] = max(err.get('sweep', 0.0), compare_sweeps(f'B1 N={N} shard', part, want))
+        if N == 256:
+            worm = dict(kappa=0.5, W=2, worms=1, max_worm_moves=ODD_REPLAY_CAP)
+            phi1, n1 = whole[0], whole[1]
+            _, part = sharded('B2 N=256', lambda *f, **k: classic_worms(*f, **worm, **k),
+                              (phi1, n1), 40)
+            want = plain_worms(phi1[cut:], n1[cut:], **worm, draws=KernelWormDraws(
+                seed_of(40), B=B - cut, N=N, device='cuda', chain0=cut))
+            err['worm'] = compare_worms('B2 N=256 shard', part, want)
+        m = torch.zeros((B, 2, N, N), dtype=torch.int32, device='cuda')
+        v = torch.randint(-2, 3, (B, 1, N, N), generator=host, dtype=torch.int32).cuda()
+        wsweep = dict(kappa=0.5, W=2, sweeps=2)
+        whole, part = sharded(f'B4 N={N}', lambda *f, **k: worldline_sweeps(*f, **wsweep, **k),
+                              (m, v), 50 + N)
+        draws = KernelWorldlineSweepDraws(seed_of(50 + N), B=B - cut, N=N, interval_v=1,
+                                          interval_t=1, interval_w=1, winf=False,
+                                          fdt=torch.float32, idt=torch.int32, device='cuda',
+                                          chain0=cut)
+        want = plain_worldline_sweeps(m[cut:], v[cut:], kappa=0.5, W=2, sweeps=2, draws=draws)
+        err['worldline_sweep'] = max(err.get('worldline_sweep', 0.0),
+                                     compare_worldline_sweeps(f'B4 N={N} shard', part, want))
+        if N == 256:
+            worm = dict(kappa=0.5, W=2, worms=1, max_worm_moves=ODD_REPLAY_CAP)
+            m1, v1 = whole[0], whole[1]
+            _, part = sharded('B5 N=256', lambda *f, **k: worldline_worms(*f, **worm, **k),
+                              (m1, v1), 60)
+            want = plain_worldline_worms(m1[cut:], v1[cut:], **worm, draws=KernelWorldlineWormDraws(
+                seed_of(60), B=B - cut, N=N, device='cuda', chain0=cut))
+            err['worldline_worm'] = compare_worms('B5 N=256 shard', part, want)
+    torch.cuda.synchronize()
+    say(f'  P1: {time.perf_counter() - t0!r} s (card: {card}); largest errors {err}')
+    return err
+
+
+def phase_mesh_fleets(torch, card):
+    """P2: the fused fleets at the main path's width and the generic Villain
+    Hammer's sample_fleet at L=64 over cuda:0 alone (the unsharded
+    reference), with mesh=None, over chain_mesh() and over the card listed 4
+    times: equal columns, stats and final bit for bit.  With more than one
+    card visible, mesh=None and chain_mesh() shard over every card, and the
+    reference stays one card.  Returns the fused fleets' digests (for P3) and
+    the kernels' launches."""
+    import supervillain_tpu_torch as sv
+    from supervillain_tpu_torch.generators import villain as gv
+    from supervillain_tpu_torch.parallel import ChainMesh, chain_mesh
+
+    reference = 'cuda:0 alone'
+    meshes = {reference: ChainMesh(['cuda:0']), 'mesh=None': None, 'chain_mesh()': chain_mesh(),
+              'cuda:0 listed 4 times': ChainMesh(['cuda:0'] * 4)}
+    say(f'== phase P2: sharded fleets on the card: {", ".join(MESH_FLEETS)} (L=256, 512 chains, '
+        f'κ=0.5, thin=50, 1 worm, {MESH_RECORDS} records) and sample_fleet of the generic '
+        f'Villain Hammer (L=64, 1024 chains, W=2, thin=4, {MESH_RECORDS} records), each over '
+        f'{", ".join(meshes)}')
+    counters = script_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    digests = {}
+
+    def over_meshes(name, run, records):
+        fleets = {}
+        for label, mesh in meshes.items():
+            t1 = time.perf_counter()
+            fleets[label] = run(mesh)
+            torch.cuda.synchronize()
+            say(f'  [{card}] {name}, {label}: {(time.perf_counter() - t1) / records!r} s per '
+                f'record ({records} records, host copies included); mesh {fleets[label].mesh}')
+        ref = fleets[reference]
+        for label, fleet in fleets.items():
+            diff = fleet_differences(fleet, ref)
+            say(f'  {name}, {label} against {reference}: '
+                f'{"equal bit for bit" if not diff else "differs in " + ", ".join(diff)}')
+            require(not diff, f'P2 {name}: {label} differs from the unsharded fleet: {diff}')
+        return ref
+
+    for name in MESH_FLEETS:
+        digests[name] = fleet_digest(over_meshes(name, lambda mesh: mesh_fused_fleet(name, mesh),
+                                                 MESH_RECORDS))
+    S = sv.Villain(sv.Lattice2D(64), 0.5, W=2)
+    over_meshes('sample_fleet Hammer(fleet=True)', lambda mesh: sv.sample_fleet(
+        S, gv.Hammer(S, fleet=True), chains=1024, steps=MESH_RECORDS, thin=4, seed=17,
+        mesh=mesh), MESH_RECORDS)
+    launches = {k: f.launches for k, f in counters.items()}
+    say(f'  P2: {time.perf_counter() - t0!r} s (card: {card}); launches {launches}')
+    require(all(v > 0 for v in launches.values()), f'P2: a kernel never launched: {launches}')
+    return digests, launches
+
+
+def p3_rank(rank, init, out):
+    """One of P3's two ranks: P2's fused fleets over chain_mesh() of a group of
+    two processes on cuda:0, the digests of the returned fleets and the
+    collective count inside and after the records, written to out/rank.json."""
+    import torch
+    from supervillain_tpu_torch.parallel import chain_mesh, distributed
+
+    distributed.initialize(init, 2, rank)
+    mesh = chain_mesh()
+    result = {}
+    for name in MESH_FLEETS:
+        seen = []
+        fleet = mesh_fused_fleet(name, mesh, collective_watch(
+            lambda: distributed.collective.calls, seen))
+        result[name] = {'digest': fleet_digest(fleet), 'inside': seen[-1] - seen[0],
+                        'after': distributed.collective.calls - seen[-1], 'mesh': fleet.mesh,
+                        'device': str(torch.cuda.current_device())}
+    with open(f'{out}/rank{rank}.json', 'w') as f:
+        json.dump(result, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_processes(torch, card, digests):
+    """P3: two gloo ranks on the one card, each with its 256 chains of P2's
+    fused fleets: both return P2's unsharded fleet bit for bit, with no
+    collective inside the records and one gather after them."""
+    import tempfile
+    import torch.multiprocessing as mp
+
+    say(f'== phase P3: two processes (gloo, file init) on cuda:0, 256 chains each of '
+        f'{", ".join(MESH_FLEETS)}; joined within {P3_LIMIT} s')
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        context = mp.start_processes(p3_rank, args=(f'file://{tmp}/init', tmp), nprocs=2,
+                                     join=False, start_method='spawn')
+        deadline = time.monotonic() + P3_LIMIT
+        try:
+            while not context.join(timeout=1):
+                require(time.monotonic() < deadline, f'P3: the ranks did not end in {P3_LIMIT} s')
+        finally:
+            for proc in context.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(timeout=30)
+        ranks = []
+        for rank in range(2):
+            with open(f'{tmp}/rank{rank}.json') as f:
+                ranks.append(json.load(f))
+    for rank, result in enumerate(ranks):
+        for name, r in result.items():
+            say(f'  rank {rank} {name}: digest {r["digest"]} (unsharded, P2: {digests[name]}); '
+                f'collectives inside the records {r["inside"]}, after them {r["after"]}; '
+                f'mesh {r["mesh"]}; card {r["device"]}')
+            require(r['digest'] == digests[name], f'P3 rank {rank} {name}: not the unsharded fleet')
+            require(r['inside'] == 0, f'P3 rank {rank} {name}: a collective inside a record')
+            require(r['after'] == 1, f'P3 rank {rank} {name}: {r["after"]} gathers after the records')
+            require(r['mesh']['size'] == 2, f'P3 rank {rank} {name}: mesh {r["mesh"]}')
+    say(f'  P3: {time.perf_counter() - t0!r} s (card: {card}), process start-up included')
+
+
+def phase_scaling(torch, card):
+    """P4: benchmark/scaling.py on the card: its one-card row (no efficiency on
+    one card) and its collective audit (0 inside the records)."""
+    import tempfile
+    say('== phase P4: python -m supervillain_tpu_torch.benchmark.scaling on the card')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        done = subprocess.run([sys.executable, '-m', 'supervillain_tpu_torch.benchmark.scaling',
+                               '--json', f'{tmp}/scaling.json'], cwd=repo_root(),
+                              capture_output=True, text=True, timeout=600)
+        for line in done.stdout.splitlines():
+            say(f'  | {line}')
+        require(done.returncode == 0, f'P4: scaling.py failed ({done.returncode}): {done.stderr}')
+        with open(f'{tmp}/scaling.json') as f:
+            payload = json.load(f)
+    rows, audit = payload['weak_scaling'], payload['collectives_in_compiled_step']
+    require(len(rows) == 1 and rows[0]['devices'] == 1 and rows[0]['efficiency'] is None,
+            f'P4: one card must give one row and no efficiency: {rows}')
+    require(audit['inside_records'] == 0, f'P4: collectives inside the records: {audit}')
+    say(f'  [{payload["config"]["card"]}] P4 one-card row: {rows[0]!r}; audit {audit}; '
+        f'{time.perf_counter() - t0!r} s (card: {card})')
+
+
 def main():
     import torch
 
@@ -2587,6 +2906,10 @@ def main():
     phase_d4_topology(torch, card)
     phase_worldline_general(torch, card)
     phase_dimension(torch, card)
+    offset_err = phase_chain_offsets(torch, card)
+    digests, mesh_launches = phase_mesh_fleets(torch, card)
+    phase_processes(torch, card, digests)
+    phase_scaling(torch, card)
     launches |= w_launches
     ms |= w_ms
     plain_ms |= w_plain_ms
@@ -2616,11 +2939,12 @@ def main():
                               'the ported scripts at even N (E2-E8)': scripts[name],
                               'odd N against the plain twins (O1)': odd_launches.get(name, 0),
                               'the scripts at their odd default N (O2)': odd_scripts[name],
-                              'D >= 3 (D2-D4)': 0},
+                              'D >= 3 (D2-D4)': 0,
+                              'sharded fleets on the card (P2)': mesh_launches[name]},
          'launches_by_parity': {'even': launches[name] + exact.get(name, 0)
                                 + general.get(name, 0) + scripts[name],
                                 'odd': odd_launches.get(name, 0) + odd_scripts[name]},
-         'max_abs_err': max(err[name], odd_err.get(name, 0.0)),
+         'max_abs_err': max(err[name], odd_err.get(name, 0.0), offset_err.get(name, 0.0)),
          'ms': ms[name], 'plain_ms': plain_ms[name], 'bound_ms': bounds[name][0],
          'bound_by': bounds[name][1], 'library_ms': None,
          'at_N255': odd(name, ODD_LARGE_N), 'at_N256_same_run': odd(name, 256)}

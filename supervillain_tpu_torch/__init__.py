@@ -1,8 +1,9 @@
 """PyTorch and CUDA port of supervillain_tpu: the Villain and Worldline fused
 Hammer fleets and the general generators (every eager update, the combinators,
-both ``Hammer``s and ``sample_fleet``) on one GPU, their observables, the
-bootstrap and HDF5 I/O; the command-line tier (``cli``, ``python -m
-supervillain_tpu_torch``) and the example scripts of ``examples/``.
+both ``Hammer``s and ``sample_fleet``) on one GPU or sharded over a chain mesh
+of cards and processes (``parallel``), their observables, the bootstrap and
+HDF5 I/O; the command-line tier (``cli``, ``python -m supervillain_tpu_torch``)
+and the example scripts of ``examples/``.
 
 The fused sweep and worm kernels are CUDA C++ for Hopper (``csrc/``), built at
 first use; every kernel has a plain PyTorch twin that runs for tensors on the

@@ -8,7 +8,9 @@
 // Δn = d(Δz); ΔS = Σ_links (κ/2)·cr·(2r + cr) with cr the change of the link
 // residual r = dφ − 2πn; Metropolis on u < exp(−ΔS).  Draws: Philox keyed by
 // the seed, countered by (site t·N + x, chain, pass n_colors·sweep + color, k),
-// with n_colors = 2 at even N and 4 at odd N.
+// with n_colors = 2 at even N and 4 at odd N.  The chain word is chain0 +
+// the chain's index in the call: chain0, the global index of the call's first
+// chain, lets a fleet cut into shards draw what it draws whole.
 //
 // Three regimes, chosen on the host from N alone (ops/sweep.py sweep_plan):
 // resident and streaming at even N, and at odd N a colour table.
@@ -159,8 +161,8 @@ __global__ void init_residual(const float* __restrict__ phi, const int* __restri
 
 __global__ void color_pass(float* __restrict__ phi, int* __restrict__ n, float* __restrict__ r,
                            int* __restrict__ accepted, int B, int N, int color, uint32_t pass,
-                           uint2 key, float kappa, int W, float interval_phi, int interval_n,
-                           float p_n) {
+                           uint2 key, uint32_t chain0, float kappa, int W, float interval_phi,
+                           int interval_n, float p_n) {
     const int hN = N / 2;
     const long long NN = (long long)N * N;
     const long long half = NN / 2;
@@ -184,8 +186,8 @@ __global__ void color_pass(float* __restrict__ phi, int* __restrict__ n, float* 
         float* r1 = r0 + NN;
 
         const float rf0 = r0[s], rb0 = r0[lb0], rf1 = r1[s], rb1 = r1[lb1];
-        const Move m = propose((uint32_t)s, (uint32_t)chain, pass, key, kappa, W, interval_phi,
-                               interval_n, p_n, rf0, rb0, rf1, rb1);
+        const Move m = propose((uint32_t)s, chain0 + (uint32_t)chain, pass, key, kappa, W,
+                               interval_phi, interval_n, p_n, rf0, rb0, rf1, rb1);
         accept = m.accept;
         if (accept) {
             ph[s] += m.dphi;
@@ -214,8 +216,8 @@ __global__ void color_pass(float* __restrict__ phi, int* __restrict__ n, float* 
 __global__ void color_pass_table(float* __restrict__ phi, int* __restrict__ n,
                                  float* __restrict__ r, int* __restrict__ accepted,
                                  const int8_t* __restrict__ colors, int B, int N, int color,
-                                 uint32_t pass, uint2 key, float kappa, int W, float interval_phi,
-                                 int interval_n, float p_n) {
+                                 uint32_t pass, uint2 key, uint32_t chain0, float kappa, int W,
+                                 float interval_phi, int interval_n, float p_n) {
     const long long NN = (long long)N * N;
     const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
     int chain = -1;
@@ -237,7 +239,7 @@ __global__ void color_pass_table(float* __restrict__ phi, int* __restrict__ n,
             float* r1 = r0 + NN;
 
             const float rf0 = r0[s], rb0 = r0[lb0], rf1 = r1[s], rb1 = r1[lb1];
-            const Move m = propose((uint32_t)s, (uint32_t)chain, pass, key, kappa, W,
+            const Move m = propose((uint32_t)s, chain0 + (uint32_t)chain, pass, key, kappa, W,
                                    interval_phi, interval_n, p_n, rf0, rb0, rf1, rb1);
             accept = m.accept;
             if (accept) {
@@ -362,8 +364,8 @@ __device__ __forceinline__ void cluster_sync(cg::cluster_group& cluster, bool ti
 __global__ void __launch_bounds__(kResidentThreads, 1) resident_sweeps(
     const float* __restrict__ phi_in, const int* __restrict__ n_in, float* __restrict__ phi_out,
     int* __restrict__ n_out, int* __restrict__ accepted, double* __restrict__ sums,
-    long long* __restrict__ cycles, int N, int k, int hmax, int sweeps, uint2 key, float kappa,
-    int W, float interval_phi, int interval_n, float p_n) {
+    long long* __restrict__ cycles, int N, int k, int hmax, int sweeps, uint2 key, uint32_t chain0,
+    float kappa, int W, float interval_phi, int interval_n, float p_n) {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ double warp_r2[kWarps], warp_dn2[kWarps];
     __shared__ int warp_acc[kWarps];
@@ -431,8 +433,8 @@ __global__ void __launch_bounds__(kResidentThreads, 1) resident_sweeps(
                 const int lb0 = other + (row - 1) * hN + j;  // ℓ0[t − 1, x] when row > 0
                 const float rf0 = r0[q], rf1 = r1[q], rb1 = r1[lb1];
                 const float rb0 = row > 0 ? r0[lb0] : r0_prev[other + j];
-                const Move m = propose((uint32_t)s, (uint32_t)chain, pass, key, kappa, W,
-                                       interval_phi, interval_n, p_n, rf0, rb0, rf1, rb1);
+                const Move m = propose((uint32_t)s, chain0 + (uint32_t)chain, pass, key, kappa,
+                                       W, interval_phi, interval_n, p_n, rf0, rb0, rf1, rb1);
                 if (m.accept) {
                     ++count;
                     phi[q] += m.dphi;
@@ -580,11 +582,12 @@ const char* sv_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // the table colors (N·N int8, values 0..n_colors-1).  accepted (B,) int32
 // receives the accepted site updates; sums (B, 2) double receives Σ_sweeps Σ r²
 // and Σ_sweeps Σ (dn)².  r (B, 2, N, N) f32 is scratch.  W == 0 selects z-mode
-// (W = ∞); p_n < 0 means no zero inflation.
+// (W = ∞); p_n < 0 means no zero inflation.  chain0 is the global index of
+// the first chain, which the chains' draws count from.
 int sv_sweeps(const float* phi_in, const int* n_in, float* phi, int* n, float* r,
               int* accepted, double* sums, const int8_t* colors, int n_colors, int B, int N,
               int sweeps, float kappa, int W, float interval_phi, int interval_n, float p_n,
-              unsigned long long seed, void* stream_ptr) {
+              unsigned long long seed, unsigned int chain0, void* stream_ptr) {
     if (colors == nullptr && (N % 2 != 0 || n_colors != 2)) return cudaErrorInvalidValue;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     const size_t NN = (size_t)N * N;
@@ -606,12 +609,12 @@ int sv_sweeps(const float* phi_in, const int* n_in, float* phi, int* n, float* r
             const uint32_t pass = (uint32_t)(n_colors * sweep + color);
             if (colors == nullptr) {
                 color_pass<<<pass_blocks, threads, 0, stream>>>(
-                    phi, n, r, accepted, B, N, color, pass, key, kappa, W, interval_phi,
+                    phi, n, r, accepted, B, N, color, pass, key, chain0, kappa, W, interval_phi,
                     interval_n, p_n);
             } else {
                 color_pass_table<<<table_blocks, threads, 0, stream>>>(
-                    phi, n, r, accepted, colors, B, N, color, pass, key, kappa, W, interval_phi,
-                    interval_n, p_n);
+                    phi, n, r, accepted, colors, B, N, color, pass, key, chain0, kappa, W,
+                    interval_phi, interval_n, p_n);
             }
             if ((e = cudaGetLastError())) return e;
         }
@@ -630,8 +633,8 @@ int sv_sweeps(const float* phi_in, const int* n_in, float* phi, int* n, float* r
 int sv_sweeps_resident(const float* phi_in, const int* n_in, float* phi, int* n, int* accepted,
                        double* sums, long long* cycles, int B, int N, int sweeps, float kappa,
                        int W, float interval_phi, int interval_n, float p_n,
-                       unsigned long long seed, int k, int hmax, int threads, int shared_bytes,
-                       void* stream_ptr) {
+                       unsigned long long seed, unsigned int chain0, int k, int hmax, int threads,
+                       int shared_bytes, void* stream_ptr) {
     int active = 0;
     cudaError_t e = active_clusters(k, threads, shared_bytes, &active);
     if (e) return e;
@@ -639,8 +642,8 @@ int sv_sweeps_resident(const float* phi_in, const int* n_in, float* phi, int* n,
     const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
     ResidentLaunch launch(B, k, threads, shared_bytes, (cudaStream_t)stream_ptr);
     e = cudaLaunchKernelEx(&launch.config, resident_sweeps, phi_in, n_in, phi, n, accepted, sums,
-                           cycles, N, k, hmax, sweeps, key, kappa, W, interval_phi, interval_n,
-                           p_n);
+                           cycles, N, k, hmax, sweeps, key, chain0, kappa, W, interval_phi,
+                           interval_n, p_n);
     if (e) return refused(e);
     return cudaGetLastError();
 }

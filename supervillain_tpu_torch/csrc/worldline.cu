@@ -44,7 +44,8 @@
 // (at W = ∞, where v is a float, too).  The double sums' order differs from
 // torch.sum's, so a same-draws comparison with the plain twin can part on a
 // wrapping decision.  Draws: Philox keyed by the seed's Worldline key,
-// countered by (plaquette or cycle, chain, (2·n_colors + 2)·sweep + pass, 0),
+// countered by (plaquette or cycle, chain0 + chain, (2·n_colors + 2)·sweep + pass, 0)
+// (chain0: the global index of the call's first chain),
 // pass counting the vortex colors, the coexact colors, then the two wrapping
 // directions: 6·sweep + pass at even N.
 //
@@ -161,8 +162,8 @@ constexpr int kBatch = 4;
 template <bool kVortex, typename V>
 __global__ void __launch_bounds__(kLanes * kRows) plaquette_pass(
     V* __restrict__ vp, int* __restrict__ tp, float* __restrict__ u, int* __restrict__ accepted,
-    int N, int color, uint32_t pass, uint2 key, float inv2k, float inv_w, float interval_v,
-    int interval_t) {
+    int N, int color, uint32_t pass, uint2 key, uint32_t chain0, float inv2k, float inv_w,
+    float interval_v, int interval_t) {
     using F = std::conditional_t<kVortex, V, int>;  // v, or T of Δm = δt
     const int t = blockIdx.x * kRows + threadIdx.y, chain = blockIdx.y;
     int count = 0;
@@ -202,7 +203,7 @@ __global__ void __launch_bounds__(kLanes * kRows) plaquette_pass(
                 if (j >= hN) break;
                 const int x = 2 * j + p;
                 const uint4 w = philox4x32_10(
-                    make_uint4((uint32_t)(t * N + x), (uint32_t)chain, pass, 0u), key);
+                    make_uint4((uint32_t)(t * N + x), chain0 + (uint32_t)chain, pass, 0u), key);
                 // δ of a change on this plaquette is (+c, −c, −c, +c) on its 4 links.
                 F change;
                 float du;  // the residual's change on ℓ0[t,x]; the others follow the signs
@@ -239,8 +240,8 @@ __global__ void __launch_bounds__(kLanes * kRows) plaquette_pass(
 template <bool kVortex, typename V>
 __global__ void __launch_bounds__(kLanes * kRows) plaquette_pass_table(
     V* __restrict__ vp, int* __restrict__ tp, float* __restrict__ u, int* __restrict__ accepted,
-    const int8_t* __restrict__ colors, int N, int color, uint32_t pass, uint2 key, float inv2k,
-    float inv_w, float interval_v, int interval_t) {
+    const int8_t* __restrict__ colors, int N, int color, uint32_t pass, uint2 key, uint32_t chain0,
+    float inv2k, float inv_w, float interval_v, int interval_t) {
     using F = std::conditional_t<kVortex, V, int>;
     const int t = blockIdx.x * kRows + threadIdx.y, chain = blockIdx.y;
     int count = 0;
@@ -260,7 +261,8 @@ __global__ void __launch_bounds__(kLanes * kRows) plaquette_pass_table(
             // The plaquette's links ℓ0[t,x], ℓ0[t,x+1], ℓ1[t,x], ℓ1[t+1,x].
             const int ib = t * N + (x + 1 == N ? 0 : x + 1), id = tn * N + x;
             const float ua = u0[s], ub = u0[ib], uc = u1[s], ud = u1[id];
-            const uint4 w = philox4x32_10(make_uint4((uint32_t)s, (uint32_t)chain, pass, 0u), key);
+            const uint4 w =
+                philox4x32_10(make_uint4((uint32_t)s, chain0 + (uint32_t)chain, pass, 0u), key);
             F change;
             float du;
             if constexpr (!kVortex) {
@@ -298,8 +300,8 @@ __global__ void __launch_bounds__(kLanes * kRows) plaquette_pass_table(
 template <bool kPublic>
 __global__ void __launch_bounds__(kLanes * kRows) wrapping_pass(
     float* __restrict__ u, int* __restrict__ shifts, int* __restrict__ accepted,
-    double* __restrict__ squares, int N, int row_blocks, uint32_t pass0, uint2 key, float inv2k,
-    int interval_w) {
+    double* __restrict__ squares, int N, int row_blocks, uint32_t pass0, uint2 key, uint32_t chain0,
+    float inv2k, int interval_w) {
     const int chain = blockIdx.y, lane = threadIdx.x, warp = threadIdx.y;
     const int NN = N * N, hN = N / 2;
     float* uc = u + chain * 2 * NN;
@@ -309,7 +311,8 @@ __global__ void __launch_bounds__(kLanes * kRows) wrapping_pass(
     if ((int)blockIdx.x < row_blocks) {
         const int t = blockIdx.x * kRows + warp;
         if (t < N) {
-            const uint4 w = philox4x32_10(make_uint4((uint32_t)t, (uint32_t)chain, pass0 + 1u, 0u), key);
+            const uint4 w = philox4x32_10(
+                make_uint4((uint32_t)t, chain0 + (uint32_t)chain, pass0 + 1u, 0u), key);
             const int c = draw_nonzero(w.x, interval_w);
             const float cf = (float)c;
             double dS = 0.0, s = 0.0;
@@ -361,7 +364,8 @@ __global__ void __launch_bounds__(kLanes * kRows) wrapping_pass(
         int c = 0;
         float cf = 0.f, u01 = 0.f;
         if (active) {
-            const uint4 w = philox4x32_10(make_uint4((uint32_t)x, (uint32_t)chain, pass0, 0u), key);
+            const uint4 w =
+                philox4x32_10(make_uint4((uint32_t)x, chain0 + (uint32_t)chain, pass0, 0u), key);
             c = draw_nonzero(w.x, interval_w);
             cf = (float)c;
             u01 = u24(w.y);
@@ -418,7 +422,7 @@ int worldline_sweeps(const int* m_in, const V* v_in, int* m, V* v, V* vp, int* t
                      int* shifts, double* squares, int* accepted, double* sums,
                      const int8_t* colors, int n_colors, int B, int N, int sweeps, float inv2k,
                      float inv_w, float interval_v, int interval_t, int interval_w,
-                     unsigned long long seed, void* stream_ptr) {
+                     unsigned long long seed, unsigned int chain0, void* stream_ptr) {
     if (colors == nullptr && (N % 2 != 0 || n_colors != 2)) return cudaErrorInvalidValue;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     cudaError_t e;
@@ -445,12 +449,12 @@ int worldline_sweeps(const int* m_in, const V* v_in, int* m, V* v, V* vp, int* t
         for (int color = 0; color < n_colors; ++color) {
             if (table) {
                 plaquette_pass_table<true, V><<<rows, block, 0, stream>>>(
-                    vp, tp, u, accepted, colors, N, color, pass0 + color, key, inv2k, inv_w,
-                    interval_v, interval_t);
+                    vp, tp, u, accepted, colors, N, color, pass0 + color, key, chain0, inv2k,
+                    inv_w, interval_v, interval_t);
             } else {
                 plaquette_pass<true, V><<<rows, block, 0, stream>>>(
-                    vp, tp, u, accepted, N, color, pass0 + color, key, inv2k, inv_w, interval_v,
-                    interval_t);
+                    vp, tp, u, accepted, N, color, pass0 + color, key, chain0, inv2k, inv_w,
+                    interval_v, interval_t);
             }
             if ((e = cudaGetLastError())) return e;
         }
@@ -458,11 +462,11 @@ int worldline_sweeps(const int* m_in, const V* v_in, int* m, V* v, V* vp, int* t
             const uint32_t pass = pass0 + (uint32_t)(n_colors + color);
             if (table) {
                 plaquette_pass_table<false, V><<<rows, block, 0, stream>>>(
-                    vp, tp, u, accepted, colors, N, color, pass, key, inv2k, inv_w, interval_v,
-                    interval_t);
+                    vp, tp, u, accepted, colors, N, color, pass, key, chain0, inv2k, inv_w,
+                    interval_v, interval_t);
             } else {
                 plaquette_pass<false, V><<<rows, block, 0, stream>>>(
-                    vp, tp, u, accepted, N, color, pass, key, inv2k, inv_w, interval_v,
+                    vp, tp, u, accepted, N, color, pass, key, chain0, inv2k, inv_w, interval_v,
                     interval_t);
             }
             if ((e = cudaGetLastError())) return e;
@@ -470,12 +474,12 @@ int worldline_sweeps(const int* m_in, const V* v_in, int* m, V* v, V* vp, int* t
         const uint32_t wrap0 = pass0 + 2u * (uint32_t)n_colors;
         if (table) {
             wrapping_pass<true><<<cycles, block, 0, stream>>>(u, shifts, accepted, squares, N,
-                                                              row_blocks, wrap0, key, inv2k,
-                                                              interval_w);
+                                                              row_blocks, wrap0, key, chain0,
+                                                              inv2k, interval_w);
         } else {
             wrapping_pass<false><<<cycles, block, 0, stream>>>(u, shifts, accepted, squares, N,
-                                                               row_blocks, wrap0, key, inv2k,
-                                                               interval_w);
+                                                               row_blocks, wrap0, key, chain0,
+                                                               inv2k, interval_w);
         }
         if ((e = cudaGetLastError())) return e;
     }
@@ -500,15 +504,16 @@ extern "C" {
 // shifts (B, 2N) int32 and squares (B, 2N) double.  colors is null at even N
 // (two colors, private layout), else the plaquettes' colors (N·N int8, values
 // 0..n_colors-1; public layout).  v is int32 (finite W); the _winf entry takes
-// float32 v (W = ∞).  B may be at most 65535 (the grid's y extent).
+// float32 v (W = ∞).  B may be at most 65535 (the grid's y extent).  chain0 is
+// the global index of the first chain, which the draws count from.
 int sv_worldline_sweeps(const int* m_in, const int* v_in, int* m, int* v, int* vp, int* tp,
                         float* u, int* shifts, double* squares, int* accepted, double* sums,
                         const int8_t* colors, int n_colors, int B, int N, int sweeps, float inv2k,
                         float inv_w, float interval_v, int interval_t, int interval_w,
-                        unsigned long long seed, void* stream) {
+                        unsigned long long seed, unsigned int chain0, void* stream) {
     return worldline_sweeps<int>(m_in, v_in, m, v, vp, tp, u, shifts, squares, accepted, sums,
                                  colors, n_colors, B, N, sweeps, inv2k, inv_w, interval_v,
-                                 interval_t, interval_w, seed, stream);
+                                 interval_t, interval_w, seed, chain0, stream);
 }
 
 int sv_worldline_sweeps_winf(const int* m_in, const float* v_in, int* m, float* v, float* vp,
@@ -516,10 +521,10 @@ int sv_worldline_sweeps_winf(const int* m_in, const float* v_in, int* m, float* 
                              double* sums, const int8_t* colors, int n_colors, int B, int N,
                              int sweeps, float inv2k, float inv_w, float interval_v,
                              int interval_t, int interval_w, unsigned long long seed,
-                             void* stream) {
+                             unsigned int chain0, void* stream) {
     return worldline_sweeps<float>(m_in, v_in, m, v, vp, tp, u, shifts, squares, accepted, sums,
                                    colors, n_colors, B, N, sweeps, inv2k, inv_w, interval_v,
-                                   interval_t, interval_w, seed, stream);
+                                   interval_t, interval_w, seed, chain0, stream);
 }
 
 }  // extern "C"

@@ -53,7 +53,9 @@
 // truncation the pending word is flushed and one lane replays the path from
 // the tail, subtracting each Δm: exact on integers, O(moves).  Draws: Philox
 // keyed by the seed's Worldline key, countered by (chain, worm, 0, 2) for a
-// worm's start and (chain, worm, move, odd) for each move.
+// worm's start and (chain, worm, move, odd) for each move, the chain word
+// being chain0 + the chain's index in the call (chain0: the global index of
+// the call's first chain).
 //
 // Next step (not taken): a chain resident in shared memory, which would cut a
 // move to shared-memory latency.  It needs an exact compact encoding of the
@@ -143,9 +145,9 @@ __device__ __forceinline__ Move make_move(int code, float u) {
 
 // This lane's draw of move `move` of worm w: the choice in bits 0-1 and the
 // close decision (u < 1/(2D+1)) in bit 2, and the Metropolis uniform.
-__device__ __forceinline__ void draw_move(int chain, int w, long long move, uint2 key, int& code,
-                                          float& u) {
-    const uint4 r = philox4x32_10(make_uint4((uint32_t)chain, (uint32_t)w, (uint32_t)move,
+__device__ __forceinline__ void draw_move(uint32_t chain, int w, long long move, uint2 key,
+                                          int& code, float& u) {
+    const uint4 r = philox4x32_10(make_uint4(chain, (uint32_t)w, (uint32_t)move,
                                              2u * (uint32_t)(move >> 32) + 1u), key);
     code = (int)(r.y & 3u) | (u24(r.x) < 0.2f ? 4 : 0);
     u = u24(r.z);
@@ -165,8 +167,9 @@ template <bool kPow2>
 __global__ void __launch_bounds__(32) worm_kernel(int2* __restrict__ packed, float* __restrict__ hist,
                                                   float* __restrict__ stat, uint32_t* __restrict__ log,
                                                   long long log_words, int N, float inv2k, int worms,
-                                                  long long cap, uint2 key) {
+                                                  long long cap, uint2 key, uint32_t chain0) {
     const int chain = blockIdx.x, lane = threadIdx.x;
+    const uint32_t global = chain0 + (uint32_t)chain;  // the chain's word of every counter
     const int NN = N * N;
     int2* P = packed + chain * 2 * NN;
     float* h = hist + chain * NN;
@@ -185,7 +188,7 @@ __global__ void __launch_bounds__(32) worm_kernel(int2* __restrict__ packed, flo
     long long length = 0;
     int truncations = 0;
     for (int w = 0; w < worms; ++w) {
-        const uint4 s = philox4x32_10(make_uint4((uint32_t)chain, (uint32_t)w, 0u, 2u), key);
+        const uint4 s = philox4x32_10(make_uint4(global, (uint32_t)w, 0u, 2u), key);
         const int orientation = (s.x >> 31) ? 1 : -1;
         const int tail_t = rand_site(s.y, N), tail_x = rand_site(s.z, N);
         int head_t = tail_t, head_x = tail_x;
@@ -199,7 +202,7 @@ __global__ void __launch_bounds__(32) worm_kernel(int2* __restrict__ packed, flo
         Candidate cand[4];
         int mine;
         float mine_u;
-        draw_move(chain, w, lane, key, mine, mine_u);
+        draw_move(global, w, lane, key, mine, mine_u);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             mv[i] = make_move(__shfl_sync(kAll, mine, i), __shfl_sync(kAll, mine_u, i));
@@ -278,7 +281,7 @@ __global__ void __launch_bounds__(32) worm_kernel(int2* __restrict__ packed, flo
             ++k;
             // Move k + 3's draws into the slot move k − 1 left; a new batch
             // starts every 32 moves.
-            if (((k + 3) & 31) == 0) draw_move(chain, w, k + 3 + lane, key, mine, mine_u);
+            if (((k + 3) & 31) == 0) draw_move(global, w, k + 3 + lane, key, mine, mine_u);
             mv[J] = make_move(__shfl_sync(kAll, mine, (int)((k + 3) & 31)),
                               __shfl_sync(kAll, mine_u, (int)((k + 3) & 31)));
             return true;
@@ -317,7 +320,8 @@ __global__ void __launch_bounds__(32) worm_kernel(int2* __restrict__ packed, flo
 template <typename V>
 int worldline_worms(const int* m_in, const V* v, int* m, int2* packed, float* hist, float* stat,
                     uint32_t* log, long long log_words, int B, int N, float inv2k, float inv_w,
-                    int worms, long long cap, unsigned long long seed, void* stream_ptr) {
+                    int worms, long long cap, unsigned long long seed, unsigned int chain0,
+                    void* stream_ptr) {
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     const int NN = N * N, total = B * NN, threads = 256;
     const int blocks = (total + threads - 1) / threads;
@@ -329,7 +333,7 @@ int worldline_worms(const int* m_in, const V* v, int* m, int2* packed, float* hi
     if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                   cudaSharedmemCarveoutMaxL1))) return e;
     kernel<<<B, 32, 0, stream>>>(packed, hist, stat, log, log_words, N, inv2k, worms, cap,
-                                 sv::worldline_key(seed));
+                                 sv::worldline_key(seed), chain0);
     if ((e = cudaGetLastError())) return e;
     unpack_m<<<blocks, threads, 0, stream>>>(packed, m, total, NN);
     return cudaGetLastError();
@@ -344,21 +348,22 @@ extern "C" {
 // f32 the worm length and the truncation count.  packed (B, N, N, 2) int2 is
 // scratch.  cap < 0 means unbounded; with a cap, log holds log_words 32-bit
 // words per chain (at least ceil(cap / 16)).  v is int32 (finite W); the
-// _winf entry takes float32 v (W = ∞).
+// _winf entry takes float32 v (W = ∞).  chain0 is the global index of the
+// first chain, which the draws count from.
 int sv_worldline_worms(const int* m_in, const int* v, int* m, int2* packed, float* hist,
                        float* stat, uint32_t* log, long long log_words, int B, int N, float inv2k,
                        float inv_w, int worms, long long cap, unsigned long long seed,
-                       void* stream) {
+                       unsigned int chain0, void* stream) {
     return worldline_worms<int>(m_in, v, m, packed, hist, stat, log, log_words, B, N, inv2k, inv_w,
-                                worms, cap, seed, stream);
+                                worms, cap, seed, chain0, stream);
 }
 
 int sv_worldline_worms_winf(const int* m_in, const float* v, int* m, int2* packed, float* hist,
                             float* stat, uint32_t* log, long long log_words, int B, int N,
                             float inv2k, float inv_w, int worms, long long cap,
-                            unsigned long long seed, void* stream) {
+                            unsigned long long seed, unsigned int chain0, void* stream) {
     return worldline_worms<float>(m_in, v, m, packed, hist, stat, log, log_words, B, N, inv2k,
-                                  inv_w, worms, cap, seed, stream);
+                                  inv_w, worms, cap, seed, chain0, stream);
 }
 
 }  // extern "C"

@@ -62,7 +62,7 @@ __global__ void worm_kernel(const float* __restrict__ phi, int* __restrict__ n,
                             float* __restrict__ hist, float* __restrict__ stat,
                             uint32_t* __restrict__ log, long long log_words, int B, int N,
                             float kappa, int closed_always, int worms, long long cap, int rollback,
-                            uint2 key) {
+                            uint2 key, uint32_t chain0) {
     const int chain = blockIdx.x * blockDim.x + threadIdx.x;
     if (chain >= B) return;
     const long long NN = (long long)N * N;
@@ -70,17 +70,18 @@ __global__ void worm_kernel(const float* __restrict__ phi, int* __restrict__ n,
     int* nc = n + chain * 2 * NN;
     float* h = hist + chain * NN;
     uint32_t* lg = rollback ? log + chain * log_words : nullptr;
+    const uint32_t global = chain0 + (uint32_t)chain;  // the chain's word of every counter
 
     float length = 0.f;
     int truncations = 0;
     for (int w = 0; w < worms; ++w) {
         // Counters: (chain, worm, k, even) for the start, (chain, worm, move, odd) per move.
-        const uint4 s0 = philox4x32_10(make_uint4((uint32_t)chain, (uint32_t)w, 0u, 0u), key);
+        const uint4 s0 = philox4x32_10(make_uint4(global, (uint32_t)w, 0u, 0u), key);
         const int orientation = (s0.x >> 31) ? 1 : -1;
         const int tail_t = rand_site(s0.y, N), tail_x = rand_site(s0.z, N);
         int head_t = tail_t, head_x = tail_x;
         if (closed_always) {
-            const uint4 s1 = philox4x32_10(make_uint4((uint32_t)chain, (uint32_t)w, 1u, 0u), key);
+            const uint4 s1 = philox4x32_10(make_uint4(global, (uint32_t)w, 1u, 0u), key);
             head_t = rand_site(s1.x, N);
             head_x = rand_site(s1.y, N);
         }
@@ -90,7 +91,7 @@ __global__ void worm_kernel(const float* __restrict__ phi, int* __restrict__ n,
         long long moves = 0, accepted = 0;
         while (!done && (cap < 0 || moves < cap)) {
             const uint4 m = philox4x32_10(
-                make_uint4((uint32_t)chain, (uint32_t)w, (uint32_t)moves,
+                make_uint4(global, (uint32_t)w, (uint32_t)moves,
                            2u * (uint32_t)(moves >> 32) + 1u), key);
             const bool closed = closed_always || (head_t == tail_t && head_x == tail_x);
             done = closed && u24(m.x) >= 0.8f;
@@ -146,9 +147,11 @@ extern "C" {
 // (B, N, N) f32 receives the Vortex_Vortex tallies, stat (B, 2) f32 the worm
 // length and the truncation count.  cap < 0 means unbounded; with rollback,
 // log holds log_words 32-bit words per chain (at least ceil(cap / 16)).
+// chain0 is the global index of the first chain, which the draws count from.
 int sv_worms(const float* phi, const int* n_in, int* n, float* hist, float* stat,
              uint32_t* log, long long log_words, int B, int N, float kappa, int closed_always,
-             int worms, long long cap, int rollback, unsigned long long seed, void* stream_ptr) {
+             int worms, long long cap, int rollback, unsigned long long seed, unsigned int chain0,
+             void* stream_ptr) {
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     const size_t NN = (size_t)N * N;
     cudaError_t e;
@@ -157,7 +160,8 @@ int sv_worms(const float* phi, const int* n_in, int* n, float* hist, float* stat
     const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
     const int threads = 32;
     worm_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
-        phi, n, hist, stat, log, log_words, B, N, kappa, closed_always, worms, cap, rollback, key);
+        phi, n, hist, stat, log, log_words, B, N, kappa, closed_always, worms, cap, rollback, key,
+        chain0);
     return cudaGetLastError();
 }
 

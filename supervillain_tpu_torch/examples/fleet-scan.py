@@ -1,12 +1,13 @@
 #!/usr/bin/env python
 """A fleet of independent chains scanning κ across the BKT transition with inline
 observables and pooled bootstrap analysis, and HDF5 output with ``--h5`` (which
-needs h5py): the port of ``examples/fleet-scan.py``, on one device.
+needs h5py): the port of ``examples/fleet-scan.py``.
 
 Every step of ``Hammer(S, fleet=True)`` runs over the whole batch of chains, on
 the card (``--device cuda``, the default) or, with ``--device cpu``, through
-the plain PyTorch versions.  The JAX script's ``--mesh`` (sharding the chains
-over devices) is not ported.
+the plain PyTorch versions.  ``sample_fleet`` shards the chains over every
+card where there is more than one, as the JAX script does; ``--mesh`` asks for
+:func:`chain_mesh` on one card too.  The result does not depend on it.
 """
 
 # Allow running this script directly from anywhere: put the repo root (the
@@ -22,7 +23,7 @@ for _p in _pathlib.Path(__file__).resolve().parents:
 import supervillain_tpu_torch as sv
 from supervillain_tpu_torch.analysis import Bootstrap, Uncertain
 from supervillain_tpu_torch.generators import villain as gvillain
-from supervillain_tpu_torch.parallel import sample_fleet
+from supervillain_tpu_torch.parallel import chain_mesh, sample_fleet
 
 parser = sv.cli.ArgumentParser(description='Multi-chain κ scan.')
 parser.add_argument('--N', type=int, default=32)
@@ -34,12 +35,15 @@ parser.add_argument('--cut', type=int, default=25)
 parser.add_argument('--kappas', nargs='*', type=float, default=(0.5, 0.74, 1.0))
 parser.add_argument('--h5', default='')
 parser.add_argument('--device', default='cuda', help="'cuda' (the default) or 'cpu'")
+parser.add_argument('--mesh', action='store_true', help='shard the chains over every card')
 args = parser.parse_args()
 
 h5py = sv.cli.h5py() if args.h5 else None
 L = sv.Lattice2D(args.N)
+mesh = chain_mesh(None if args.device == 'cuda' else [args.device]) if args.mesh else None
 
-print(f'{args.device}; {args.chains} chains of {args.steps}x{args.thin} sweeps at N={args.N}')
+where = args.device if mesh is None else f'{mesh.size} shards ({mesh})'
+print(f'{where}; {args.chains} chains of {args.steps}x{args.thin} sweeps at N={args.N}')
 print(f'{"kappa":>8s} {"ActionDensity":>16s} {"WindingSquared":>18s} {"acc(site)":>10s}')
 
 results = {}
@@ -49,7 +53,7 @@ for kappa in args.kappas:
     # ClassicWorm at W>1) so no step waits on the slowest chain's worm.
     G = gvillain.Hammer(S, fleet=True)
     fleet = sample_fleet(S, G, chains=args.chains, steps=args.steps, thin=args.thin,
-                         seed=int(kappa * 1000), device=args.device)
+                         seed=int(kappa * 1000), mesh=mesh, device=args.device)
     pooled = fleet.pooled_ensemble(cut=args.cut)
     b = Bootstrap(pooled, draws=100)
     sa = fleet.stats['SiteUpdate']

@@ -1,15 +1,17 @@
 #!/usr/bin/env python
 """The many-chain workload: 10,240 independent L=64 chains at κ=0.74 as one batch
-on one card, with autocorrelation and bootstrap analysis and, with ``--h5``
-(which needs h5py), HDF5 output: the port of ``examples/pod-fleet.py``.
+on one card, or sharded over the cards with ``--mesh``, with autocorrelation
+and bootstrap analysis and, with ``--h5`` (which needs h5py), HDF5 output: the
+port of ``examples/pod-fleet.py``.
 
 ``sample_fused_fleet`` launches the fused neighborhood sweep over the whole
-batch every record; the inline observables bring two scalars per chain per
-record to the host.  Runs on the card (``--device cuda``, the default) or,
-with ``--device cpu``, through the plain PyTorch version, at the size asked
-for.  The JAX script's chain packing (``--cpp``) and ``--mesh`` (sharding the
-chains over devices) are not ported.  ``main()`` returns the fleet, the
-estimates and the rate.
+batch (or each shard) every record; the inline observables bring two scalars
+per chain per record to the host.  Runs on the card (``--device cuda``, the
+default) or, with ``--device cpu``, through the plain PyTorch version, at the
+size asked for.  ``--mesh`` shards the chains over :func:`chain_mesh`, every
+card (or, in a ``torchrun`` group, every process's card); the result does not
+depend on it.  The JAX script's chain packing (``--cpp``) is not ported.
+``main()`` returns the fleet, the estimates and the rate.
 """
 
 # Allow running this script directly from anywhere: put the repo root (the
@@ -30,7 +32,7 @@ import supervillain_tpu_torch as sv
 from supervillain_tpu_torch.analysis import Bootstrap, Uncertain, autocorrelation_time
 from supervillain_tpu_torch.configurations import Configurations
 from supervillain_tpu_torch.ensemble import Ensemble
-from supervillain_tpu_torch.parallel import sample_fused_fleet
+from supervillain_tpu_torch.parallel import chain_mesh, sample_fused_fleet
 
 
 def main():
@@ -43,10 +45,12 @@ def main():
     ap.add_argument('--thin', type=int, default=16)
     ap.add_argument('--h5', type=str, default=None, help='write the fleet here (needs h5py)')
     ap.add_argument('--device', default='cuda', help="'cuda' (the default) or 'cpu'")
+    ap.add_argument('--mesh', action='store_true', help='shard the chains over every card')
     args = ap.parse_args()
 
     h5py = sv.cli.h5py() if args.h5 else None
     S = sv.Villain(sv.Lattice2D(args.L), args.kappa, W=1)
+    mesh = chain_mesh(None if args.device == 'cuda' else [args.device]) if args.mesh else None
 
     t0 = time.perf_counter()
     # Thermalize inside the first records: run therm as extra leading records
@@ -54,7 +58,8 @@ def main():
     lead = max(1, args.therm // args.thin)
     fleet = sample_fused_fleet(
         S, chains=args.chains, steps=lead + args.steps, thin=args.thin,
-        seed=20260821, interval_phi=0.7, p_n=0.05, keep_fields=False, device=args.device)
+        seed=20260821, interval_phi=0.7, p_n=0.05, keep_fields=False, mesh=mesh,
+        device=args.device)
     seconds = time.perf_counter() - t0
     su = args.chains * S.Lattice.sites * args.thin * (lead + args.steps)
 
@@ -75,8 +80,8 @@ def main():
     mS, eS = b.estimate('ActionDensity')
     mW, eW = b.estimate('WindingSquared')
 
-    print(f'# pod-fleet: {args.chains} chains, L={args.L}, κ={args.kappa}, '
-          f'one {args.device} device')
+    where = f'one {args.device} device' if mesh is None else f'{mesh.size} shards ({mesh})'
+    print(f'# pod-fleet: {args.chains} chains, L={args.L}, κ={args.kappa}, {where}')
     print(f'records {args.steps}×thin={args.thin} after {lead} lead records; '
           f'{seconds:.1f} s total = {su / seconds:.3g} site-updates/s')
     print(f'ActionDensity  = {Uncertain(mS, eS)}')

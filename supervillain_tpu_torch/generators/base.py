@@ -6,39 +6,47 @@ owns static configuration and exposes
     step(generator, cfg, stats) -> (cfg, stats, inline)
 
 where ``generator`` is a ``torch.Generator`` on the device of the fields (the
-draws of the plain PyTorch updates, and the seeds of the kernels), ``cfg`` the
-field dict of a batch of independent chains (every field has a leading chain
-axis: B chains in a fleet, one under :meth:`Ensemble.generate`), ``stats`` a
-dict of acceptance tallies summed over the chains (one sub-dict per generator
-tag; the values stay on the fields' device until :func:`host_stats` reads
-them) and ``inline`` a dict of per-step inline observables, one per chain.
+draws of the plain PyTorch updates, and the seeds of the kernels), or a
+shard's :class:`..ops.shard.ShardGenerator` in a fleet cut into shards,
+``cfg`` the field dict of a batch of independent chains (every field has a
+leading chain axis: B chains in a fleet, one under :meth:`Ensemble.generate`),
+``stats`` a dict of acceptance tallies (one sub-dict per generator tag; the
+values stay on the fields' device until :func:`host_stats` reads them) and
+``inline`` a dict of per-step inline observables, one per chain.  The
+tallies are summed over the chains, or kept per chain where they start as
+:func:`per_chain_stats` (a fleet's, which sums them once at its end).
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from ..device import float_dtype_of
+from ..ops import shard
 
 
 def uniform_nonzero_int(generator, shape, interval, dtype=torch.int64, device='cpu'):
-    """Uniform over ±{1, ..., interval} (zero excluded)."""
-    r = torch.randint(0, 2 * interval, shape, generator=generator, dtype=dtype, device=device)
+    """Uniform over ±{1, ..., interval} (zero excluded).  ``shape`` leads with
+    the chain axis, here and in the draws below (a shard of a fleet keeps its
+    rows of the fleet's draw: :mod:`..ops.shard`)."""
+    r = shard.randint(generator, 0, 2 * interval, shape, dtype=dtype, device=device)
     return torch.where(r < interval, r - interval, r - interval + 1)
 
 
 def uniform_int_with_zero(generator, shape, interval, dtype=torch.int64, device='cpu'):
     """Uniform over {-interval, ..., +interval} (zero included)."""
-    return torch.randint(-interval, interval + 1, shape, generator=generator,
-                         dtype=dtype, device=device)
+    return shard.randint(generator, -interval, interval + 1, shape, dtype=dtype, device=device)
 
 
 def zero_inflated_int(generator, shape, interval, p, dtype=torch.int64, device='cpu'):
     """Symmetric sparse proposal: ±k with k uniform in {1..interval}, each sign with
     probability p/2; zero otherwise.  P(+k) = P(−k), so a Metropolis update built on
     it satisfies detailed balance."""
-    u = torch.rand(shape, generator=generator, device=device)
-    mag = torch.randint(1, interval + 1, shape, generator=generator, dtype=dtype, device=device)
+    u = shard.rand(generator, shape, device=device)
+    mag = shard.randint(generator, 1, interval + 1, shape, dtype=dtype, device=device)
     sign = (u < p / 2).to(dtype) - ((u >= p / 2) & (u < p)).to(dtype)
     return sign * mag
 
@@ -55,17 +63,40 @@ def empty_stats():
     return {'accepted': 0.0, 'proposed': 0.0, 'acceptance': 0.0, 'sweeps': 0.0}
 
 
-def host_stats(stats):
-    """The tallies as Python floats (one read of each device value)."""
-    return {tag: {k: float(v) for k, v in s.items()} for tag, s in stats.items()}
+def per_chain_stats(stats, chains, device):
+    """``stats`` (as :meth:`Generator.init_stats` gives them) kept per chain:
+    each tally a (chains,) float64 tensor on ``device``."""
+    return {tag: {k: torch.full((chains,), float(v), dtype=torch.float64, device=device)
+                  for k, v in s.items()} for tag, s in stats.items()}
 
 
-def _total(value, chains):
-    """A per-chain tally summed over the batch: a (B,) tensor in float64 on its
-    device, or a number that every chain adds."""
+def _chain_sum(value):
+    """A tally as a Python float: a per-chain one summed with ``math.fsum``,
+    whose correctly rounded sum does not depend on the chains' order, so a
+    fleet's stats come out the same however its chains were split."""
     if isinstance(value, torch.Tensor):
-        return value.sum(dtype=torch.float64)
-    return float(value) * chains
+        value = value.cpu().numpy()
+    if np.ndim(value) == 1:
+        return math.fsum(value)
+    return float(value)
+
+
+def host_stats(stats):
+    """The tallies as Python floats, summed over the chains where they are
+    kept per chain (one read of each device value)."""
+    return {tag: {k: _chain_sum(v) for k, v in s.items()} for tag, s in stats.items()}
+
+
+def _add(total, value, chains):
+    """Add a step's per-chain tally ``value`` (a (B,) tensor, or a number that
+    every chain adds) to a running ``total``: chain by chain where the total is
+    kept per chain, else summed over the batch in float64."""
+    if isinstance(total, torch.Tensor) and total.dim() == 1:
+        return total + (value.to(torch.float64) if isinstance(value, torch.Tensor)
+                        else float(value))
+    if isinstance(value, torch.Tensor):
+        return total + value.sum(dtype=torch.float64)
+    return total + float(value) * chains
 
 
 class Generator:
@@ -98,10 +129,10 @@ class Generator:
         tag = tag or self.name
         s = stats[tag]
         return stats | {tag: {
-            'accepted': s['accepted'] + _total(accepted, chains),
-            'proposed': s['proposed'] + _total(proposed, chains),
-            'acceptance': s['acceptance'] + _total(acceptance, chains),
-            'sweeps': s['sweeps'] + _total(sweeps, chains),
+            'accepted': _add(s['accepted'], accepted, chains),
+            'proposed': _add(s['proposed'], proposed, chains),
+            'acceptance': _add(s['acceptance'], acceptance, chains),
+            'sweeps': _add(s['sweeps'], sweeps, chains),
         }}
 
     def report(self, stats):

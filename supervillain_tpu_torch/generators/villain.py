@@ -10,8 +10,9 @@ only, as the JAX package's are.
 - ``NeighborhoodUpdate`` and ``ExactNeighborhoodUpdate`` run one sweep through
   :func:`..ops.sweep.neighborhood_sweeps` in D=2, and ``ClassicWorm`` one worm
   through :func:`..ops.worm.classic_worms`: on the card their CUDA kernels (B1,
-  B2), on the CPU their plain twins with draws from the step's
-  ``torch.Generator``.  At D >= 3 no kernel exists (the TPU kernels are D=2
+  B2), on the CPU their plain twins (the sweep's draws from the step's
+  ``torch.Generator``, the worm's from the kernel's Philox stream, seeded
+  from it).  At D >= 3 no kernel exists (the TPU kernels are D=2
   only): the neighborhood sweep runs its D-general form,
   :func:`..ops.sweep.plain_sweeps`, as PyTorch operations on the fields'
   device, so a D >= 3 chain launches no kernel.
@@ -27,6 +28,7 @@ import torch
 
 from ..models import Villain
 from ..ops import calculus as calc
+from ..ops import shard
 from ..ops.sweep import SweepDraws, neighborhood_sweeps, plain_sweeps
 from ..ops.worm import _LINK_DIR, _LINK_OFF, _MOVES, _PLAQUETTE, classic_worms
 from .base import Generator, metropolis, uniform_nonzero_int
@@ -51,8 +53,9 @@ def _spatial(L):
     return tuple(range(-L.D, 0))
 
 
-def _uniform(generator, shape, like):
-    return torch.rand(shape, generator=generator, dtype=like.dtype, device=like.device)
+def _uniform(generator, shape, like, axis=0):
+    """Uniforms in ``like``'s dtype and device, the chain axis being ``axis``."""
+    return shard.rand(generator, shape, dtype=like.dtype, device=like.device, axis=axis)
 
 
 # -- ΔS of each update's proposals, per site (or per link, per chain) ----------
@@ -387,11 +390,11 @@ class ChunkedWorm(_WormReport, Generator):
         worm = cfg['worm'].long()
         head, tail, orientation = worm[:, :2], worm[:, 2:4], worm[:, 4].to(n.dtype)
 
-        u = _uniform(generator, (T, 2, B), phi)
-        choices = torch.randint(0, 4, (T, B), generator=generator, device=dev)
-        restarts = torch.randint(0, N, (T, B, 4), generator=generator, device=dev)
-        orients = 2 * torch.randint(0, 2, (T, B), generator=generator, device=dev,
-                                    dtype=n.dtype) - 1
+        u = _uniform(generator, (T, 2, B), phi, axis=2)
+        choices = shard.randint(generator, 0, 4, (T, B), device=dev, axis=1)
+        restarts = shard.randint(generator, 0, N, (T, B, 4), device=dev, axis=1)
+        orients = 2 * shard.randint(generator, 0, 2, (T, B), device=dev, dtype=n.dtype,
+                                    axis=1) - 1
         moves = torch.tensor(_MOVES, device=dev)
         link_dir = torch.tensor(_LINK_DIR, device=dev)
         link_off = torch.tensor(_LINK_OFF, device=dev)

@@ -22,9 +22,10 @@ import torch
 
 from ..models import Worldline
 from ..ops import calculus as calc
+from ..ops import kernels, shard
 from ..ops.worldline import (WorldlineSweepDraws, coexact_pass, inverse_w, on_component, passes,
                              residual, vortex_pass, wrapping_pass)
-from ..ops.worldline_worm import WorldlineWormDraws, plain_worldline_worms, worldline_worms
+from ..ops.worldline_worm import KernelWorldlineWormDraws, plain_worldline_worms, worldline_worms
 from ..device import float_dtype_of
 from .base import Generator, metropolis
 from .combining import KeepEvery, Sequentially
@@ -169,13 +170,12 @@ class PlaquetteUpdate(Generator):
             if kind != 'vortex':    # one pass per (color, component), in that order
                 continue
             mask = L.mask(color, m.device)
-            cm = 2 * torch.randint(0, 2, site, generator=generator, device=m.device,
-                                   dtype=m.dtype) - 1
-            cv = torch.randint(-1, 2, site, generator=generator, device=m.device).to(v.dtype)
+            cm = 2 * shard.randint(generator, 0, 2, site, device=m.device, dtype=m.dtype) - 1
+            cv = shard.randint(generator, -1, 2, site, device=m.device).to(v.dtype)
             t = on_component(torch.where(mask, cm, 0), comp, L)
             change_v = on_component(torch.where(mask, cv, 0), comp, L)
             dS = plaquette_delta_s(S.kappa, L, f, t, change_v, S.W, comp)
-            accept, prob = metropolis(torch.rand(site, generator=generator, dtype=f.dtype,
+            accept, prob = metropolis(shard.rand(generator, site, dtype=f.dtype,
                                                  device=m.device), dS)
             accept = accept & mask
             applied_t = on_component(torch.where(accept, cm, 0), comp, L)
@@ -218,8 +218,9 @@ class ClassicWorm(_WormReport, Generator):
                 m, v, kappa=self.Action.kappa, W=self.Action.W, worms=1,
                 max_worm_moves=self.max_moves, generator=generator)
         else:
-            draws = WorldlineWormDraws(generator, B=m.shape[0], N=L.N, fdt=float_dtype_of(v),
-                                       device=m.device, D=L.D)
+            draws = KernelWorldlineWormDraws(kernels.seed_from(generator), B=m.shape[0], N=L.N,
+                                             device=m.device, chain0=shard.chain0_of(generator),
+                                             D=L.D)
             m, hist, length, truncated = plain_worldline_worms(
                 m, v, kappa=self.Action.kappa, W=self.Action.W, worms=1,
                 max_worm_moves=self.max_moves, draws=draws)

@@ -20,19 +20,24 @@ import tempfile
 
 import torch
 
+from .shard import torch_generator
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / 'csrc'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
-_P, _I, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                         ctypes.c_ulonglong, ctypes.c_float)
-_WORLDLINE_SWEEPS = [_P] * 12 + [_I, _I, _I, _I, _F, _F, _F, _I, _I, _ULL, _P]
-_WORLDLINE_WORMS = [_P] * 7 + [_LL, _I, _I, _F, _F, _I, _LL, _ULL, _P]
+_P, _I, _U, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong,
+                             ctypes.c_ulonglong, ctypes.c_float)
+# Every drawing entry point takes the seed and then chain0, the global index of
+# its first chain (ops/shard.py), which its Philox counters count from.
+_WORLDLINE_SWEEPS = [_P] * 12 + [_I, _I, _I, _I, _F, _F, _F, _I, _I, _ULL, _U, _P]
+_WORLDLINE_WORMS = [_P] * 7 + [_LL, _I, _I, _F, _F, _I, _LL, _ULL, _U, _P]
 _SIGNATURES = {
-    'sv_sweeps': [_P] * 8 + [_I, _I, _I, _I, _F, _I, _F, _I, _F, _ULL, _P],
-    'sv_sweeps_resident': [_P] * 7 + [_I, _I, _I, _F, _I, _F, _I, _F, _ULL, _I, _I, _I, _I, _P],
+    'sv_sweeps': [_P] * 8 + [_I, _I, _I, _I, _F, _I, _F, _I, _F, _ULL, _U, _P],
+    'sv_sweeps_resident': [_P] * 7 + [_I, _I, _I, _F, _I, _F, _I, _F, _ULL, _U, _I, _I, _I, _I,
+                                      _P],
     'sv_sweeps_resident_clusters': [_I, _I, _I, _P],
-    'sv_worms': [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _I, _LL, _I, _ULL, _P],
+    'sv_worms': [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _I, _LL, _I, _ULL, _U, _P],
     'sv_worldline_sweeps': _WORLDLINE_SWEEPS,
     'sv_worldline_sweeps_winf': _WORLDLINE_SWEEPS,
     'sv_worldline_worms': _WORLDLINE_WORMS,
@@ -121,9 +126,20 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def seed_from(generator: torch.Generator) -> int:
-    """A 63-bit kernel seed drawn from ``generator`` (on any device)."""
+def seed_from(generator) -> int:
+    """A 63-bit kernel seed drawn from ``generator`` (on any device), a
+    ``torch.Generator`` or a shard's :class:`.shard.ShardGenerator`: every
+    chain of a call shares the seed, so a shard draws it as the whole fleet does."""
+    generator = torch_generator(generator)
     return int(torch.randint(0, 2 ** 63 - 1, (), generator=generator, device=generator.device))
+
+
+def chain_word(chain0: int, B: int) -> int:
+    """``chain0`` of a call on ``B`` chains, checked to keep every chain's
+    index inside the kernels' unsigned 32-bit counter word."""
+    if not (0 <= chain0 and chain0 + B <= 2 ** 32):
+        raise ValueError(f'chains {chain0} to {chain0 + B} leave the kernels\' 32-bit chain word')
+    return int(chain0)
 
 
 def _require_batch(first, second, dtypes, components):

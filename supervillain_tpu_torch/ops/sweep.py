@@ -19,7 +19,9 @@ over sites, in any dimension D (the eager updates run it at D >= 3, where no
 kernel exists), with the random draws of each color pass as an input: from a
 ``torch.Generator`` (:class:`SweepDraws`), the JAX package's own (tests), or the
 kernel's own Philox stream (:class:`KernelSweepDraws`), which makes it replay a
-kernel call.
+kernel call.  A batch that is a shard of a fleet (:mod:`.shard`) draws the
+fleet's numbers and keeps its rows on the CPU, and counts the kernel's stream
+from its first chain's global index, ``chain0``, on the card.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from . import calculus as calc
-from . import kernels, philox
+from . import kernels, philox, shard
 from .lattice import Lattice, Lattice2D
 from ..generators.base import metropolis, uniform_int_with_zero, zero_inflated_int
 
@@ -160,33 +162,33 @@ class SweepDraws:
         g, dev, fdt = self.generator, self.device, self.fdt
         site = (self.B,) + (self.N,) * self.D
         link = (self.B, self.D) + site[1:]
-        out = {'phi': (2 * torch.rand(site, generator=g, dtype=fdt, device=dev) - 1)
-               * self.interval_phi}
+        out = {'phi': (2 * shard.rand(g, site, dtype=fdt, device=dev) - 1) * self.interval_phi}
         if self.zmode:
             out['z'] = self._ints(site)
         else:
             out['fwd'] = self._ints(link)
             out['bwd'] = self._ints(link)
-        out['u'] = torch.rand(site, generator=g, dtype=fdt, device=dev)
+        out['u'] = shard.rand(g, site, dtype=fdt, device=dev)
         return out
 
 
 class KernelSweepDraws:
     """The draws of one CUDA sweep-kernel call seeded with ``seed``, as a draw
     source of :func:`plain_sweeps`: Philox-4x32-10 keyed by the seed and
-    countered by (site, chain, color pass, k), with the kernel's float32
-    conversions (``csrc/sweep.cu``).  Fed these, the plain version repeats the
-    kernel call; they can differ only where float rounding of ΔS flips a
-    Metropolis decision.  Draws are made for every site; a pass uses its
-    color's."""
+    countered by (site, chain0 + chain, color pass, k), with the kernel's
+    float32 conversions (``csrc/sweep.cu``).  Fed these, the plain version
+    repeats the kernel call; they can differ only where float rounding of ΔS
+    flips a Metropolis decision.  Draws are made for every site; a pass uses
+    its color's."""
 
-    def __init__(self, seed, *, B, N, interval_phi, interval_n, p_n, zmode, fdt, idt, device):
+    def __init__(self, seed, *, B, N, interval_phi, interval_n, p_n, zmode, fdt, idt, device,
+                 chain0=0):
         self.key = philox.key_of(seed)
         self.interval_phi, self.interval_n, self.p_n = interval_phi, interval_n, p_n
         self.zmode = zmode
         self.fdt, self.idt, self.device = fdt, idt, device
         self.site = torch.arange(N * N, device=device).reshape(1, N, N)
-        self.chain = torch.arange(B, device=device).reshape(B, 1, 1)
+        self.chain = (chain0 + torch.arange(B, device=device)).reshape(B, 1, 1)
         self.passes = 0
 
     def _int(self, a, b):
@@ -293,14 +295,17 @@ def plain_sweeps(phi, n, *, kappa, W, sweeps, draws):
 
 
 def neighborhood_sweeps(phi, n, *, kappa, W, interval_phi, interval_n, sweeps,
-                        p_n=None, generator):
+                        p_n=None, generator, chain0=None):
     """Run ``sweeps`` fused neighborhood sweeps on a chain batch.
 
     Parameters
     ----------
     phi: (B, 1, N, N) float; n: (B, 2, N, N) int; any N >= 2
     W: int or ``float('inf')`` (z-mode: Δn = d(Δz), dn preserved exactly)
-    generator: ``torch.Generator`` — the draws on the CPU, the kernel seed on a GPU
+    generator: ``torch.Generator`` or a shard's :class:`.shard.ShardGenerator`
+        — the draws on the CPU, the kernel seed on a GPU
+    chain0: the global index of the batch's first chain, which the kernel's
+        stream counts from (default: the generator's, 0 for a ``torch.Generator``)
 
     Returns
     -------
@@ -308,6 +313,7 @@ def neighborhood_sweeps(phi, n, *, kappa, W, interval_phi, interval_n, sweeps,
     (B,), and the inline ``ActionDensity`` and ``WindingSquared`` per chain
     (B,), each averaged over the call's sweeps.
     """
+    chain0 = shard.resolve_chain0(generator, chain0, phi.device)
     if phi.device.type == 'cpu':
         B, N = phi.shape[0], phi.shape[-1]
         draws = SweepDraws(generator, B=B, N=N, interval_phi=interval_phi,
@@ -319,14 +325,16 @@ def neighborhood_sweeps(phi, n, *, kappa, W, interval_phi, interval_n, sweeps,
 
     B, N = kernels.require_fields(phi, n)
     return kernel_sweeps(phi, n, sweep_plan(N), kappa=kappa, W=W, interval_phi=interval_phi,
-                         interval_n=interval_n, sweeps=sweeps, p_n=p_n, generator=generator)
+                         interval_n=interval_n, sweeps=sweeps, p_n=p_n, generator=generator,
+                         chain0=chain0)
 
 
 def kernel_sweeps(phi, n, plan, *, kappa, W, interval_phi, interval_n, sweeps, p_n=None,
-                  generator, cycles=None):
+                  generator, chain0=0, cycles=None):
     """:func:`neighborhood_sweeps` of a CUDA batch under a given ``plan``: its
     :func:`sweep_plan`, or (to compare the regimes on one card) the streaming
-    or table plan at an even N that would be resident.  ``cycles``, a (B·k, 2)
+    or table plan at an even N that would be resident, the batch's first
+    chain being ``chain0`` of the fleet.  ``cycles``, a (B·k, 2)
     int64 tensor on the card, receives for each block of a resident call the
     clock cycles its thread 0 waited at cluster barriers and its cycles in
     all."""
@@ -342,25 +350,29 @@ def kernel_sweeps(phi, n, plan, *, kappa, W, interval_phi, interval_n, sweeps, p
     accepted = torch.empty(B, dtype=torch.int32, device=phi.device)
     sums = torch.empty((B, 2), dtype=torch.float64, device=phi.device)
     args = (B, N, sweeps, float(kappa), 0 if W == float('inf') else int(W), float(interval_phi),
-            int(interval_n), -1.0 if p_n is None else float(p_n), kernels.seed_from(generator))
+            int(interval_n), -1.0 if p_n is None else float(p_n), kernels.seed_from(generator),
+            kernels.chain_word(chain0, B))
     stream = kernels.stream_handle(phi.device)
-    if plan.regime == 'resident':
-        if cycles is not None and (cycles.shape != (B * plan.cluster, 2)
-                                   or cycles.dtype != torch.int64 or cycles.device != phi.device):
-            raise ValueError(f'cycles must be ({B * plan.cluster}, 2) int64 on {phi.device}')
-        code = lib.sv_sweeps_resident(
-            phi.data_ptr(), n.data_ptr(), phi_out.data_ptr(), n_out.data_ptr(),
-            accepted.data_ptr(), sums.data_ptr(), None if cycles is None else cycles.data_ptr(),
-            *args, plan.cluster, plan.rows, plan.threads, plan.shared_bytes, stream)
-    else:
-        r = torch.empty(n.shape, dtype=torch.float32, device=phi.device)
-        colors, n_colors = None, 2
-        if plan.regime == 'table':
-            colors, n_colors = color_table(N, phi.device), lattice(N).n_colors
-        code = lib.sv_sweeps(
-            phi.data_ptr(), n.data_ptr(), phi_out.data_ptr(), n_out.data_ptr(), r.data_ptr(),
-            accepted.data_ptr(), sums.data_ptr(), None if colors is None else colors.data_ptr(),
-            n_colors, *args, stream)
+    with torch.cuda.device(phi.device):
+        if plan.regime == 'resident':
+            if cycles is not None and (cycles.shape != (B * plan.cluster, 2)
+                                       or cycles.dtype != torch.int64
+                                       or cycles.device != phi.device):
+                raise ValueError(f'cycles must be ({B * plan.cluster}, 2) int64 on {phi.device}')
+            code = lib.sv_sweeps_resident(
+                phi.data_ptr(), n.data_ptr(), phi_out.data_ptr(), n_out.data_ptr(),
+                accepted.data_ptr(), sums.data_ptr(),
+                None if cycles is None else cycles.data_ptr(),
+                *args, plan.cluster, plan.rows, plan.threads, plan.shared_bytes, stream)
+        else:
+            r = torch.empty(n.shape, dtype=torch.float32, device=phi.device)
+            colors, n_colors = None, 2
+            if plan.regime == 'table':
+                colors, n_colors = color_table(N, phi.device), lattice(N).n_colors
+            code = lib.sv_sweeps(
+                phi.data_ptr(), n.data_ptr(), phi_out.data_ptr(), n_out.data_ptr(), r.data_ptr(),
+                accepted.data_ptr(), sums.data_ptr(),
+                None if colors is None else colors.data_ptr(), n_colors, *args, stream)
     kernels.check(code, f'neighborhood_sweeps ({plan.regime})')
     neighborhood_sweeps.launches += 1
     per_site = sums / (N * N * sweeps)

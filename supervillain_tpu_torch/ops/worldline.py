@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from . import calculus as calc
-from . import kernels, philox
+from . import kernels, philox, shard
 from .sweep import color_table, lattice, lattice_of
 from ..device import float_dtype_of
 from ..generators.base import metropolis, uniform_nonzero_int
@@ -155,7 +155,7 @@ class WorldlineSweepDraws:
         self.winf, self.fdt, self.idt, self.device = winf, fdt, idt, device
 
     def _uniform(self, shape):
-        return torch.rand(shape, generator=self.generator, dtype=self.fdt, device=self.device)
+        return shard.rand(self.generator, shape, dtype=self.fdt, device=self.device)
 
     def _nonzero(self, shape, interval):
         return uniform_nonzero_int(self.generator, shape, interval, dtype=self.idt,
@@ -178,19 +178,20 @@ class WorldlineSweepDraws:
 class KernelWorldlineSweepDraws:
     """The draws of one CUDA worldline-sweep call seeded with ``seed``, as a
     draw source of :func:`plain_worldline_sweeps`: Philox-4x32-10 keyed by the
-    seed's Worldline key and countered by (plaquette or cycle, chain, pass, 0),
-    pass = (2·n_colors + 2)·sweep + the index in :func:`passes` (D=2), with the
-    kernel's float32 conversions (``csrc/worldline.cu``).  Fed these, the plain version repeats
-    the kernel call; they can differ only where float rounding of ΔS flips a
-    Metropolis decision."""
+    seed's Worldline key and countered by (plaquette or cycle, chain0 + chain,
+    pass, 0), pass = (2·n_colors + 2)·sweep + the index in :func:`passes`
+    (D=2), with the kernel's float32 conversions (``csrc/worldline.cu``).  Fed
+    these, the plain version repeats the kernel call; they can differ only
+    where float rounding of ΔS flips a Metropolis decision."""
 
-    def __init__(self, seed, *, B, N, interval_v, interval_t, interval_w, winf, fdt, idt, device):
+    def __init__(self, seed, *, B, N, interval_v, interval_t, interval_w, winf, fdt, idt, device,
+                 chain0=0):
         self.key = philox.worldline_key(seed)
         self.interval_v, self.interval_t, self.interval_w = interval_v, interval_t, interval_w
         self.winf, self.fdt, self.idt, self.device = winf, fdt, idt, device
         self.plaquette = torch.arange(N * N, device=device).reshape(1, N, N)
         self.cycle = torch.arange(N, device=device).reshape(1, N)
-        self.chain = torch.arange(B, device=device)
+        self.chain = chain0 + torch.arange(B, device=device)
         self.passes = 0
 
     def _nonzero(self, word, interval):
@@ -265,14 +266,17 @@ def sweep_scratch(m, v):
 
 
 def worldline_sweeps(m, v, *, kappa, W, interval_v=1, interval_t=1, interval_w=1, sweeps,
-                     generator):
+                     generator, chain0=None):
     """Run ``sweeps`` fused worldline local-update sweeps on a chain batch.
 
     Parameters
     ----------
     m: (B, 2, N, N) int; v: (B, 1, N, N) int (finite W) or float (W = inf); any N >= 2
     interval_v: Δv range (a float width at W = inf); interval_t, interval_w: Δm ranges
-    generator: ``torch.Generator`` — the draws on the CPU, the kernel seed on a GPU
+    generator: ``torch.Generator`` or a shard's :class:`.shard.ShardGenerator`
+        — the draws on the CPU, the kernel seed on a GPU
+    chain0: the global index of the batch's first chain, which the kernel's
+        stream counts from (default: the generator's, 0 for a ``torch.Generator``)
 
     Returns
     -------
@@ -283,6 +287,7 @@ def worldline_sweeps(m, v, *, kappa, W, interval_v=1, interval_t=1, interval_w=1
     """
     winf = W == float('inf')
     interval_v = float(interval_v) if winf else int(interval_v)
+    chain0 = shard.resolve_chain0(generator, chain0, m.device)
     if m.device.type == 'cpu':
         B, N = m.shape[0], m.shape[-1]
         draws = WorldlineSweepDraws(generator, B=B, N=N, interval_v=interval_v,
@@ -306,13 +311,15 @@ def worldline_sweeps(m, v, *, kappa, W, interval_v=1, interval_t=1, interval_w=1
     sums = torch.empty(B, dtype=torch.float64, device=m.device)
     colors = color_table(N, m.device) if N % 2 else None
     entry = lib.sv_worldline_sweeps_winf if winf else lib.sv_worldline_sweeps
-    code = entry(m.data_ptr(), v.data_ptr(), m_out.data_ptr(), v_out.data_ptr(),
-                 *(scratch[k].data_ptr() for k in ('v', 't', 'u', 'shifts', 'squares')),
-                 accepted.data_ptr(), sums.data_ptr(),
-                 None if colors is None else colors.data_ptr(), lattice(N).n_colors,
-                 B, N, sweeps, float(0.5 / kappa),
-                 float(inverse_w(W)), float(interval_v), int(interval_t), int(interval_w),
-                 kernels.seed_from(generator), kernels.stream_handle(m.device))
+    seed = kernels.seed_from(generator)
+    with torch.cuda.device(m.device):
+        code = entry(m.data_ptr(), v.data_ptr(), m_out.data_ptr(), v_out.data_ptr(),
+                     *(scratch[k].data_ptr() for k in ('v', 't', 'u', 'shifts', 'squares')),
+                     accepted.data_ptr(), sums.data_ptr(),
+                     None if colors is None else colors.data_ptr(), lattice(N).n_colors,
+                     B, N, sweeps, float(0.5 / kappa),
+                     float(inverse_w(W)), float(interval_v), int(interval_t), int(interval_w),
+                     seed, kernels.chain_word(chain0, B), kernels.stream_handle(m.device))
     kernels.check(code, 'worldline_sweeps')
     worldline_sweeps.launches += 1
     inline = {'ActionDensity': ((0.5 / kappa) * sums / (N * N * sweeps)).float()}

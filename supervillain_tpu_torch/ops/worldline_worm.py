@@ -2,17 +2,19 @@
 
 Counterpart of :func:`supervillain_tpu.ops.pallas_worldline_hammer.worldline_worms`.
 :func:`worldline_worms` dispatches by device: a CPU batch runs
-:func:`plain_worldline_worms` with draws from a ``torch.Generator``, a CUDA
-batch runs the kernel of ``csrc/worldline_worm.cu``, and any other device raises.
+:func:`plain_worldline_worms` on the kernel's own Philox stream, a CUDA batch
+runs the kernel of ``csrc/worldline_worm.cu``, and any other device raises.
 
 The plain version is the move rule of
 :class:`supervillain_tpu.generators.worldline.ClassicWorm` in any dimension D
 (the eager worm runs it at D >= 3, where no kernel exists), advancing all
 chains one move per iteration (a chain whose worm has closed stops drawing),
-with the draws coming from a draw source: a ``torch.Generator``
-(:class:`WorldlineWormDraws`), the JAX package's own (tests), or the kernel's
-Philox stream (:class:`KernelWorldlineWormDraws`).  The worm changes only m; the
-crossed link's residual is m − δv/_W with δv/_W fixed for the call.
+with the draws coming from a draw source: the kernel's Philox stream
+(:class:`KernelWorldlineWormDraws`), which :func:`worldline_worms` and the
+eager worm at D >= 3 draw on the CPU, a ``torch.Generator``
+(:class:`WorldlineWormDraws`), or the JAX package's own (tests).  The worm
+changes only m; the crossed link's residual is m − δv/_W with δv/_W fixed for
+the call.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import calculus as calc
-from . import kernels, philox
+from . import kernels, philox, shard
 from .sweep import lattice_of
 from .worldline import inverse_w
 from ..device import float_dtype_of
@@ -61,17 +63,20 @@ class KernelWorldlineWormDraws:
     """The draws of one CUDA worldline-worm call seeded with ``seed``, as a draw
     source of :func:`plain_worldline_worms`: Philox-4x32-10 keyed by the seed's
     Worldline key and countered by (chain, worm, 0, 2) for a worm's start and
-    (chain, worm, move, odd) for each move, with the kernel's conversions
+    (chain, worm, move, odd) for each move, the chain word being ``chain0`` +
+    the chain's index in the batch, with the kernel's conversions
     (``csrc/worldline_worm.cu``).  Moves are drawn ``BLOCK`` at a time: one
     Philox evaluation per block instead of per move keeps a replay of long worms
-    affordable."""
+    affordable.  At D >= 3, where no kernel exists, the same stream goes on: the
+    tail's coordinates past the second from (chain, worm, j, 2), j = 1, 2, ...,
+    and the move choice as the word modulo 2D (the kernel's ``& 3`` at D=2)."""
 
     BLOCK = 256
 
-    def __init__(self, seed, *, B, N, device):
+    def __init__(self, seed, *, B, N, device, chain0=0, D=2):
         self.key = philox.worldline_key(seed)
-        self.N, self.device = N, device
-        self.chain = torch.arange(B, device=device)
+        self.N, self.D, self.device = N, D, device
+        self.chain = chain0 + torch.arange(B, device=device)
         self.worm, self.moves = -1, 0
 
     def _site(self, word):
@@ -82,7 +87,10 @@ class KernelWorldlineWormDraws:
         self.moves = 0
         s = philox.philox4x32_10((self.chain, self.worm, 0, 2), self.key, self.device)
         orientation = torch.where((s[0] >> 31) == 1, 1, -1)
-        return orientation, torch.stack([self._site(s[1]), self._site(s[2])], dim=-1)
+        words = list(s[1:])
+        for j in range(1, 1 + max(0, -(-(self.D - 3) // 4))):
+            words += philox.philox4x32_10((self.chain, self.worm, j, 2), self.key, self.device)
+        return orientation, torch.stack([self._site(w) for w in words[:self.D]], dim=-1)
 
     def move(self):
         k = self.moves % self.BLOCK
@@ -90,7 +98,7 @@ class KernelWorldlineWormDraws:
             t = self.moves + torch.arange(self.BLOCK, device=self.device)
             w = philox.philox4x32_10((self.chain[:, None], self.worm, t & philox.MASK,
                                       2 * (t >> 32) + 1), self.key, self.device)
-            self._buffer = (philox.u24(w[0]), w[1] & 3, philox.u24(w[2]))
+            self._buffer = (philox.u24(w[0]), w[1] % (2 * self.D), philox.u24(w[2]))
         self.moves += 1
         return tuple(b[:, k] for b in self._buffer)
 
@@ -151,14 +159,17 @@ def plain_worldline_worms(m, v, *, kappa, W, worms, max_worm_moves, draws):
     return m, hist, hist.sum(dim=tuple(range(1, D + 1))), truncated
 
 
-def worldline_worms(m, v, *, kappa, W, worms=1, max_worm_moves=None, generator):
+def worldline_worms(m, v, *, kappa, W, worms=1, max_worm_moves=None, generator, chain0=None):
     """Run ``worms`` whole worldline worms per chain.
 
     Parameters
     ----------
     m: (B, 2, N, N) int; v: (B, 1, N, N) int or float (W = inf) — read only
     max_worm_moves: per-worm move cap (exact rollback of an unclosed worm) or None
-    generator: ``torch.Generator`` — the draws on the CPU, the kernel seed on a GPU
+    generator: ``torch.Generator`` or a shard's :class:`.shard.ShardGenerator`
+        — the kernel seed, on the CPU (:class:`KernelWorldlineWormDraws`) as on a GPU
+    chain0: the global index of the batch's first chain, which the kernel's
+        stream counts from (default: the generator's, 0 for a ``torch.Generator``)
 
     Returns
     -------
@@ -166,9 +177,10 @@ def worldline_worms(m, v, *, kappa, W, worms=1, max_worm_moves=None, generator):
     ``Spin_Spin`` histogram (B, N, N), the total worm length (B,) and the
     number of truncated (rolled back) worms (B,).
     """
+    chain0 = shard.resolve_chain0(generator, chain0, m.device)
     if m.device.type == 'cpu':
-        draws = WorldlineWormDraws(generator, B=m.shape[0], N=m.shape[-1], fdt=float_dtype_of(v),
-                                   device=m.device)
+        draws = KernelWorldlineWormDraws(kernels.seed_from(generator), B=m.shape[0],
+                                         N=m.shape[-1], device=m.device, chain0=chain0)
         return plain_worldline_worms(m, v, kappa=kappa, W=W, worms=worms,
                                      max_worm_moves=max_worm_moves, draws=draws)
     if m.device.type != 'cuda':
@@ -186,11 +198,12 @@ def worldline_worms(m, v, *, kappa, W, worms=1, max_worm_moves=None, generator):
     log_words = (cap + 15) // 16 if cap >= 0 else 0
     log = torch.empty((B, log_words), dtype=torch.int32, device=m.device) if cap >= 0 else None
     entry = lib.sv_worldline_worms_winf if W == float('inf') else lib.sv_worldline_worms
-    code = entry(m.data_ptr(), v.data_ptr(), m_out.data_ptr(), packed.data_ptr(), hist.data_ptr(),
-                 stat.data_ptr(), None if log is None else log.data_ptr(), log_words, B, N,
-                 float(0.5 / kappa),
-                 float(inverse_w(W)), int(worms), cap, kernels.seed_from(generator),
-                 kernels.stream_handle(m.device))
+    seed = kernels.seed_from(generator)
+    with torch.cuda.device(m.device):
+        code = entry(m.data_ptr(), v.data_ptr(), m_out.data_ptr(), packed.data_ptr(),
+                     hist.data_ptr(), stat.data_ptr(), None if log is None else log.data_ptr(),
+                     log_words, B, N, float(0.5 / kappa), float(inverse_w(W)), int(worms), cap,
+                     seed, kernels.chain_word(chain0, B), kernels.stream_handle(m.device))
     kernels.check(code, 'worldline_worms')
     worldline_worms.launches += 1
     return m_out, hist, stat[:, 0], stat[:, 1]

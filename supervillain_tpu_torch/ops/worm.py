@@ -2,14 +2,15 @@
 
 Counterpart of :func:`supervillain_tpu.ops.pallas_worm.classic_worms`.
 :func:`classic_worms` dispatches by device: a CPU batch runs
-:func:`plain_worms` with draws from a ``torch.Generator``, a CUDA batch runs
-the kernel of ``csrc/worm.cu``, and any other device raises.
+:func:`plain_worms` on the kernel's own Philox stream, a CUDA batch runs the
+kernel of ``csrc/worm.cu``, and any other device raises.
 
 The plain version is the move rule of
 :class:`supervillain_tpu.generators.villain.ClassicWorm`, advancing all chains
 one move per iteration (a chain that has closed stops drawing), with the draws
-coming from a draw source: a ``torch.Generator`` (:class:`WormDraws`), the JAX
-package's own (tests), or the kernel's Philox stream (:class:`KernelWormDraws`).
+coming from a draw source: the kernel's Philox stream (:class:`KernelWormDraws`),
+which :func:`classic_worms` draws on the CPU, a ``torch.Generator``
+(:class:`WormDraws`), or the JAX package's own (tests).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from . import calculus as calc
-from . import kernels, philox
+from . import kernels, philox, shard
 from .sweep import lattice
 
 TWO_PI = 2 * np.pi
@@ -59,13 +60,16 @@ class KernelWormDraws:
     """The draws of one CUDA worm-kernel call seeded with ``seed``, as a draw
     source of :func:`plain_worms`: Philox-4x32-10 keyed by the seed and
     countered by (chain, worm, 0 or 1, 0) for a worm's start and (chain, worm,
-    move, odd) for each move, with the kernel's conversions
-    (``csrc/worm.cu``)."""
+    move, odd) for each move, the chain word being ``chain0`` + the chain's
+    index in the batch, with the kernel's conversions (``csrc/worm.cu``).
+    Moves are drawn ``BLOCK`` at a time, one Philox evaluation per block."""
 
-    def __init__(self, seed, *, B, N, device):
+    BLOCK = 256
+
+    def __init__(self, seed, *, B, N, device, chain0=0):
         self.key = philox.key_of(seed)
         self.N, self.device = N, device
-        self.chain = torch.arange(B, device=device)
+        self.chain = chain0 + torch.arange(B, device=device)
         self.worm, self.moves = -1, 0
 
     def _site(self, word):
@@ -82,11 +86,14 @@ class KernelWormDraws:
         return orientation, tail, head
 
     def move(self):
-        t = self.moves
+        k = self.moves % self.BLOCK
+        if k == 0:
+            t = self.moves + torch.arange(self.BLOCK, device=self.device)
+            m = philox.philox4x32_10((self.chain[:, None], self.worm, t & philox.MASK,
+                                      2 * (t >> 32) + 1), self.key, self.device)
+            self._buffer = (philox.u24(m[0]), m[1] & 3, philox.u24(m[2]))
         self.moves += 1
-        m = philox.philox4x32_10((self.chain, self.worm, t & philox.MASK, 2 * (t >> 32) + 1),
-                                 self.key, self.device)
-        return philox.u24(m[0]), m[1] & 3, philox.u24(m[2])
+        return tuple(b[:, k] for b in self._buffer)
 
 
 def plain_worms(phi, n, *, kappa, W, worms, max_worm_moves, draws):
@@ -145,14 +152,17 @@ def plain_worms(phi, n, *, kappa, W, worms, max_worm_moves, draws):
     return n, hist, hist.sum(dim=(1, 2)), truncated
 
 
-def classic_worms(phi, n, *, kappa, W, worms=1, max_worm_moves=None, generator):
+def classic_worms(phi, n, *, kappa, W, worms=1, max_worm_moves=None, generator, chain0=None):
     """Run ``worms`` whole classic worms per chain.
 
     Parameters
     ----------
     phi: (B, 1, N, N) float — read only; n: (B, 2, N, N) int
     max_worm_moves: per-worm move cap (exact rollback at W != 1) or None
-    generator: ``torch.Generator`` — the draws on the CPU, the kernel seed on a GPU
+    generator: ``torch.Generator`` or a shard's :class:`.shard.ShardGenerator`
+        — the kernel seed, on the CPU (:class:`KernelWormDraws`) as on a GPU
+    chain0: the global index of the batch's first chain, which the kernel's
+        stream counts from (default: the generator's, 0 for a ``torch.Generator``)
 
     Returns
     -------
@@ -160,8 +170,10 @@ def classic_worms(phi, n, *, kappa, W, worms=1, max_worm_moves=None, generator):
     ``Vortex_Vortex`` histogram (B, N, N), the total worm length (B,) and the
     number of truncated (rolled back) worms (B,).
     """
+    chain0 = shard.resolve_chain0(generator, chain0, phi.device)
     if phi.device.type == 'cpu':
-        draws = WormDraws(generator, B=n.shape[0], N=n.shape[-1], fdt=phi.dtype, device=phi.device)
+        draws = KernelWormDraws(kernels.seed_from(generator), B=n.shape[0], N=n.shape[-1],
+                                device=phi.device, chain0=chain0)
         return plain_worms(phi, n, kappa=kappa, W=W, worms=worms,
                            max_worm_moves=max_worm_moves, draws=draws)
     if phi.device.type != 'cuda':
@@ -176,11 +188,13 @@ def classic_worms(phi, n, *, kappa, W, worms=1, max_worm_moves=None, generator):
     stat = torch.empty((B, 2), dtype=torch.float32, device=phi.device)
     log_words = (cap + 15) // 16 if rollback else 0
     log = torch.empty((B, log_words), dtype=torch.int32, device=phi.device) if rollback else None
-    code = lib.sv_worms(
-        phi.data_ptr(), n.data_ptr(), n_out.data_ptr(), hist.data_ptr(), stat.data_ptr(),
-        None if log is None else log.data_ptr(), log_words, B, N, float(kappa),
-        int(W == 1), int(worms), cap, int(rollback), kernels.seed_from(generator),
-        kernels.stream_handle(phi.device))
+    seed = kernels.seed_from(generator)
+    with torch.cuda.device(phi.device):
+        code = lib.sv_worms(
+            phi.data_ptr(), n.data_ptr(), n_out.data_ptr(), hist.data_ptr(), stat.data_ptr(),
+            None if log is None else log.data_ptr(), log_words, B, N, float(kappa),
+            int(W == 1), int(worms), cap, int(rollback), seed, kernels.chain_word(chain0, B),
+            kernels.stream_handle(phi.device))
     kernels.check(code, 'classic_worms')
     classic_worms.launches += 1
     return n_out, hist, stat[:, 0], stat[:, 1]

@@ -1,5 +1,7 @@
+from . import distributed
 from .fleet import Fleet, sample_fleet
 from .fused_fleet import TRUNCATION_BUDGET, check_truncation_budget, sample_fused_fleet
+from .mesh import ChainMesh, chain_mesh, fleet_sharding
 
-__all__ = ['Fleet', 'TRUNCATION_BUDGET', 'check_truncation_budget', 'sample_fleet',
-           'sample_fused_fleet']
+__all__ = ['ChainMesh', 'Fleet', 'TRUNCATION_BUDGET', 'chain_mesh', 'check_truncation_budget',
+           'distributed', 'fleet_sharding', 'sample_fleet', 'sample_fused_fleet']

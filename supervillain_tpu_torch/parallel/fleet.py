@@ -4,8 +4,10 @@ PyTorch counterpart of :mod:`supervillain_tpu.parallel.fleet`: :class:`Fleet`,
 the draws of many chains as NumPy columns of shape (kept, chains, ...), with
 views as ensembles; and :func:`sample_fleet`, which runs any generator over a
 batch of chains.  Where the JAX package ``vmap``s a generator over chains, the
-port hands every step the whole batch as a leading axis of the fields.
-Sharding chains over devices (the JAX ``mesh``) is not ported.
+port hands every step the whole batch as a leading axis of the fields.  With a
+chain mesh (:mod:`.mesh`) the chains are cut into contiguous blocks, one a
+shard, each run on its device and process; the result is the unsharded one,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -19,18 +21,24 @@ from ..configurations import Configurations
 from ..device import resolve_device, to_device
 from ..ensemble import Ensemble
 from ..generators import KeepEvery
-from ..generators.base import host_stats
+from ..generators.base import host_stats, per_chain_stats
+from ..ops.shard import ShardGenerator
+from . import distributed
+from .mesh import ChainMesh, chain_mesh
 
 logger = logging.getLogger(__name__)
 
 
 class Fleet:
     """Draws from many independent chains: columns of shape (kept, chains, ...),
-    per-chain final configurations, pooled statistics."""
+    per-chain final configurations, pooled statistics.  ``mesh`` records where
+    the chains ran: the mesh's ``size`` and each shard's device ``kinds``."""
 
-    def __init__(self, action, columns, stats, final, index, weight=None, device='cuda'):
+    def __init__(self, action, columns, stats, final, index, weight=None, device='cuda',
+                 mesh=None):
         self.Action = action
         self.device = device            # where the chains ran; their ensembles measure there
+        self.mesh = mesh                # {'size': shards, 'kinds': [device kind of each]}
         self.columns = columns          # name -> np.ndarray (kept, chains, ...)
         self.stats = stats              # aggregated over chains
         self.final = final              # name -> np.ndarray (chains, ...)
@@ -136,11 +144,77 @@ def _bounded_worms(generator, action, chains, policy):
     return rebuilt
 
 
+def default_mesh(device):
+    """The mesh of a fleet given none: :func:`.mesh.chain_mesh` over every card
+    where the fleet runs on the card and more than one card or process is
+    there, as the JAX package spans ``jax.devices()``; over this process's CPU
+    in a group of processes; else ``device`` alone."""
+    if device.type == 'cuda' and (torch.cuda.device_count() > 1 or distributed.world() > 1):
+        return chain_mesh()
+    if distributed.world() > 1:
+        return chain_mesh([device])
+    return ChainMesh([device])
+
+
+def shard_generators(seed, shards, chains):
+    """A :class:`..ops.shard.ShardGenerator` for each shard ``(device,
+    block)``, each over a generator on the shard's device, seeded alike.  A
+    ``torch.Generator`` passed as ``seed`` serves the first shard on its
+    device, and the others start from a copy of its state.  Every shard draws
+    the whole fleet's numbers, so all the generators stay in step and give the
+    kernels the same seeds: each chain draws what it draws unsharded."""
+    out = []
+    for device, block in shards:
+        if not isinstance(seed, torch.Generator):
+            g = torch.Generator(device=device).manual_seed(int(seed))
+        elif seed.device == device and not any(s.generator is seed for s in out):
+            g = seed
+        else:
+            g = torch.Generator(device=device)
+            g.set_state(seed.get_state())
+        out.append(ShardGenerator(g, block.start, chains))
+    return out
+
+
+def host(tensors):
+    """A dict of tensors as NumPy arrays."""
+    return {k: v.cpu().numpy() for k, v in tensors.items()}
+
+
+def join(parts, axis=0):
+    """Dicts of arrays joined key by key along ``axis`` (the chain axis), in order."""
+    if len(parts) == 1:
+        return parts[0]
+    return {k: np.concatenate([p[k] for p in parts], axis=axis) for k in parts[0]}
+
+
+def gathered_fleet(action, mesh, shards, columns, final, stats, index, device):
+    """The :class:`Fleet` of every process's shards, in global chain order.
+    ``columns`` (steps, c, ...), ``final`` (c, ...) and the per-chain ``stats``
+    (c,) are this process's, of the c chains of its ``shards`` (None where it
+    holds none); where there are several processes they are gathered in one
+    collective.  The stats are then summed over all chains."""
+    local = {'columns': columns, 'final': final, 'stats': stats, 'kinds': mesh.kinds(),
+             'blocks': [(block.start, len(block)) for _, block in shards]}
+    parts = distributed.all_gather(local) if mesh.world > 1 else [local]
+    blocks = [b for p in parts for b in p['blocks'] if b[1]]
+    if [start for start, _ in blocks] != [sum(c for _, c in blocks[:i]) for i in range(len(blocks))]:
+        raise RuntimeError(f'the processes\' shards {blocks} do not tile the fleet: every '
+                           'process must list as many devices')
+    kinds = [k for p in parts for k in p['kinds']]
+    parts = [p for p in parts if p['final'] is not None]
+    columns = join([p['columns'] for p in parts], axis=1)
+    final = join([p['final'] for p in parts])
+    stats = {tag: join([p['stats'][tag] for p in parts]) for tag in parts[0]['stats']}
+    return Fleet(action, columns, host_stats(stats), final, index, device=device,
+                 mesh={'size': mesh.size, 'kinds': kinds})
+
+
 def sample_fleet(action, generator, *, chains, steps, thin=1, seed=0, mesh=None, start='cold',
                  keep_fields=True, progress=None, bound_worms='raise', device='cuda'):
     """Sample ``chains`` independent chains for ``steps`` kept records, each
     separated by ``thin`` generator steps, on ``device`` (the card unless
-    ``device='cpu'``).
+    ``device='cpu'``) or over the shards of ``mesh``.
 
     Returns a :class:`Fleet`: the fields of every record (with
     ``keep_fields``) and the generator's inline observables, each averaged
@@ -150,33 +224,46 @@ def sample_fleet(action, generator, *, chains, steps, thin=1, seed=0, mesh=None,
     ``start`` is ``'cold'`` or a configuration dict every chain starts from.
     ``progress`` wraps the iteration over records.  ``bound_worms`` governs
     an unbounded ClassicWorm in the tree (see :func:`_bounded_worms`):
-    ``'raise'`` (default), ``'auto'`` or ``'off'``.  Sharding over devices
-    (``mesh``) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError('sample_fleet of the port runs on one device: '
-                                  'a mesh of devices is not ported')
-    device = resolve_device(device)
+    ``'raise'`` (default), ``'auto'`` or ``'off'``.
+
+    ``mesh`` (:func:`.mesh.chain_mesh`; by default :func:`default_mesh`) cuts
+    the chains into contiguous blocks, uneven where they do not divide, one
+    block a shard on its device and process.  Every shard's record is queued
+    before any is read back; no process talks to another until the records
+    are done, and then every process returns the same :class:`Fleet`, in
+    global chain order, equal bit for bit to the unsharded one."""
+    mesh = default_mesh(resolve_device(device)) if mesh is None else mesh
     generator = _bounded_worms(generator, action, chains, bound_worms)
-    rng = seed if isinstance(seed, torch.Generator) else \
-        torch.Generator(device=device).manual_seed(int(seed))
-    cfg = action.initial(device) if start == 'cold' else \
-        {k: to_device(start[k], device) for k in action.fields}
-    cfg = generator.prepare({k: v.expand((chains,) + v.shape).contiguous()
-                             for k, v in cfg.items()})
-    stats = generator.init_stats()
+    shards = [(d, block) for d, block in mesh.shards(chains) if len(block)]
+    rngs = shard_generators(seed, shards, chains)
+    cfgs, statss = [], []
+    for d, block in shards:
+        cfg = action.initial(d) if start == 'cold' else \
+            {k: to_device(start[k], d) for k in action.fields}
+        cfgs.append(generator.prepare({k: v.expand((len(block),) + v.shape).contiguous()
+                                       for k, v in cfg.items()}))
+        statss.append(per_chain_stats(generator.init_stats(), len(block), d))
 
     # A record's inline values are averaged over its thin steps.
     record_step = KeepEvery(thin, generator)
     columns = None
     iterator = range(steps) if progress is None else progress(range(steps))
     for i in iterator:
-        cfg, stats, inline = record_step.step(rng, cfg, stats)
-        record = {k: v.cpu().numpy() for k, v in ((cfg if keep_fields else {}) | inline).items()}
+        if not rngs:
+            continue                # this process holds none of the chains
+        inlines = []
+        for k, rng in enumerate(rngs):
+            cfgs[k], statss[k], inline = record_step.step(rng, cfgs[k], statss[k])
+            inlines.append(inline)
+        record = join([host((cfg if keep_fields else {}) | inline)
+                       for cfg, inline in zip(cfgs, inlines)])
         if columns is None:
             columns = {k: np.empty((steps,) + v.shape, dtype=v.dtype) for k, v in record.items()}
         for k, v in record.items():
             columns[k][i] = v
 
-    final = {k: v.cpu().numpy() for k, v in cfg.items()}
+    final = join([host(cfg) for cfg in cfgs]) if cfgs else None
+    stats = {tag: join([host(s[tag]) for s in statss]) for tag in generator.init_stats()} \
+        if statss else None
     index = thin * (1 + np.arange(steps))
-    return Fleet(action, columns, host_stats(stats), final, index, device=device)
+    return gathered_fleet(action, mesh, shards, columns, final, stats, index, mesh.devices[0])

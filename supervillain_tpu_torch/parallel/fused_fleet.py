@@ -4,10 +4,13 @@ PyTorch counterpart of
 :func:`supervillain_tpu.parallel.fused_fleet.sample_fused_fleet`, for both
 formulations: a Villain action drives the neighborhood / Hammer kernels over
 (φ, n), a Worldline action the vortex+coexact+wrapping / worldline-Hammer
-kernels over (m, v).  The chain batch is the leading tensor axis on one
-device; every call advances all chains ``thin`` sweeps (and, with
+kernels over (m, v).  The chain batch is the leading tensor axis of each
+shard's fields; every call advances all chains ``thin`` sweeps (and, with
 ``worms > 0``, that many worms) and returns inline observables measured in the
 call.  On a GPU the calls run the CUDA kernels; on the CPU the plain versions.
+With a chain mesh (:mod:`.mesh`) each shard runs its block of chains on its
+device, its kernels counting their Philox streams from its first chain's
+global index, so the fleet equals the unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -20,10 +23,12 @@ import torch
 from ..device import field_dtypes, resolve_device
 from ..models import Villain, Worldline
 from ..ops.hammer import hammer_sweeps
+from ..ops.shard import ShardGenerator
 from ..ops.sweep import neighborhood_sweeps
 from ..ops.worldline import action_density, worldline_sweeps
 from ..ops.worldline_hammer import worldline_hammer_sweeps
-from .fleet import Fleet
+from .fleet import gathered_fleet, host, join
+from .mesh import ChainMesh
 
 #: Truncated-worm fraction above which inline worm histograms should not be
 #: used quantitatively (the short-separation bias scales with this fraction).
@@ -79,10 +84,10 @@ def _worldline_launch(action, *, thin, worms, max_worm_moves):
 
 def sample_fused_fleet(action, *, chains, steps, thin=10, seed=0, interval_phi=np.pi,
                        interval_n=1, p_n=None, keep_fields=False, progress=None, worms=0,
-                       max_worm_moves='auto', device='cuda'):
+                       max_worm_moves='auto', mesh=None, device='cuda'):
     """Sample ``chains`` chains of a Villain or Worldline action for ``steps``
     kept records, each separated by ``thin`` fused sweeps, on ``device`` (the
-    card unless ``device='cpu'``).
+    card unless ``device='cpu'``) or over the shards of ``mesh``.
 
     Returns a :class:`Fleet` whose columns are the inline observables (and the
     fields, if ``keep_fields``).  ``worms > 0`` runs the fused Hammer: every
@@ -94,61 +99,81 @@ def sample_fused_fleet(action, *, chains, steps, thin=10, seed=0, interval_phi=n
     Worldline fleet's inline ``ActionDensity`` is the kernels'
     (1/2κ)Σ(m − δv/_W)²/Λ, 1 minus the registry observable of that name in D=2;
     ``interval_phi``, ``interval_n`` and ``p_n`` are Villain options.  ``seed``
-    seeds the ``torch.Generator`` that draws every call's randomness."""
+    seeds the host ``torch.Generator`` that draws every call's randomness (the
+    kernels' seeds, so that no launch waits for the card; on the CPU, every
+    draw).
+
+    ``mesh`` (:func:`.mesh.chain_mesh`) cuts the chains into equal contiguous
+    blocks, one a shard on its device and process; ``chains`` must divide by
+    ``mesh.size``.  Every shard's calls are launched before any record is read
+    back; no process talks to another until the records are done, and then
+    every process returns the same :class:`Fleet`, in global chain order,
+    equal bit for bit to the unsharded one."""
     worldline = isinstance(action, Worldline)
     if not (worldline or isinstance(action, Villain)):
         raise ValueError('sample_fused_fleet drives a Villain or a Worldline action')
-    device = resolve_device(device)
+    if mesh is None:
+        mesh = ChainMesh([resolve_device(device)])
+    elif chains % mesh.size:
+        raise ValueError(f'{chains} chains not divisible by {mesh.size} mesh devices')
     L = action.Lattice
     N = L.N
-    fdt, idt = field_dtypes(device)
     if max_worm_moves == 'auto':
         max_worm_moves = 64 * N * N if worms > 0 else None
     if worldline:
         names = ('m', 'v')
-        a = torch.zeros((chains, 2, N, N), dtype=idt, device=device)
-        b = torch.zeros((chains, 1, N, N), dtype=fdt if action.W == float('inf') else idt,
-                        device=device)
         launch = _worldline_launch(action, thin=thin, worms=worms, max_worm_moves=max_worm_moves)
         per_sweep = 2 * L.sites + 2 * N
         tag = 'WorldlineLocalUpdates'
     else:
         names = ('phi', 'n')
-        a = torch.zeros((chains, 1, N, N), dtype=fdt, device=device)
-        b = torch.zeros((chains, 2, N, N), dtype=idt, device=device)
         launch = _villain_launch(action, thin=thin, interval_phi=interval_phi,
                                  interval_n=interval_n, p_n=p_n, worms=worms,
                                  max_worm_moves=max_worm_moves)
         per_sweep = L.sites
         tag = 'NeighborhoodUpdate'
 
-    rng = torch.Generator(device=device).manual_seed(int(seed))
+    shards = mesh.shards(chains)
+    fields, accepted, rngs = [], [], []
+    for d, block in shards:
+        fdt, idt = field_dtypes(d)
+        B = len(block)
+        if worldline:
+            vdt = fdt if action.W == float('inf') else idt
+            fields.append((torch.zeros((B, 2, N, N), dtype=idt, device=d),
+                           torch.zeros((B, 1, N, N), dtype=vdt, device=d)))
+        else:
+            fields.append((torch.zeros((B, 1, N, N), dtype=fdt, device=d),
+                           torch.zeros((B, 2, N, N), dtype=idt, device=d)))
+        accepted.append(torch.zeros(B, dtype=torch.float64, device=d))
+        # Each shard's host generator, seeded alike, draws what the whole
+        # fleet's would: the same kernel seeds, and the fleet's rows.
+        rngs.append(ShardGenerator(torch.Generator().manual_seed(int(seed)), block.start, chains))
+
     columns = None
-    total_accepted = 0.0
     iterator = range(steps) if progress is None else progress(range(steps))
     for i in iterator:
-        a, b, acc, inline = launch(a, b, rng)
-        record = {k: v.cpu().numpy() for k, v in inline.items()}
-        if keep_fields:
-            record[names[0]] = a.cpu().numpy()
-            record[names[1]] = b.cpu().numpy()
-        total_accepted += float(acc.sum())
+        inlines = []
+        for k, rng in enumerate(rngs):
+            a, b, acc, inline = launch(*fields[k], rng)
+            fields[k] = (a, b)
+            accepted[k] = accepted[k] + acc.to(torch.float64)
+            inlines.append(inline | (dict(zip(names, fields[k])) if keep_fields else {}))
+        record = join([host(inline) for inline in inlines])
         if columns is None:
             columns = {k: np.empty((steps,) + v.shape, dtype=v.dtype) for k, v in record.items()}
         for k, v in record.items():
             columns[k][i] = v
 
-    if columns is not None and 'Worm_Truncated' in columns:
-        check_truncation_budget(columns['Worm_Truncated'].sum(), worms * steps * chains,
-                                context='sample_fused_fleet: ')
-
-    proposals = chains * per_sweep * thin * steps
-    stats = {tag: {
-        'accepted': total_accepted,
-        'proposed': float(proposals),
-        'acceptance': total_accepted / proposals,
-        'sweeps': float(thin * steps),
-    }}
-    final = {names[0]: a.cpu().numpy(), names[1]: b.cpu().numpy()}
+    stats = {tag: join([host({'accepted': acc}) for acc in accepted])}
+    final = join([host(dict(zip(names, f))) for f in fields])
     index = thin * (1 + np.arange(steps))
-    return Fleet(action, columns, stats, final, index, device=device)
+    fleet = gathered_fleet(action, mesh, shards, columns, final, stats, index, mesh.devices[0])
+    total = fleet.stats[tag]['accepted']
+    proposals = chains * per_sweep * thin * steps
+    fleet.stats[tag] = {'accepted': total, 'proposed': float(proposals),
+                        'acceptance': total / proposals, 'sweeps': float(thin * steps)}
+    if fleet.columns is not None and 'Worm_Truncated' in fleet.columns:
+        check_truncation_budget(fleet.columns['Worm_Truncated'].sum(), worms * steps * chains,
+                                context='sample_fused_fleet: ')
+    return fleet

@@ -651,3 +651,34 @@ def test_table_plan_at_even_n_agrees_with_the_kernels_plan_bit_for_bit(cuda, N):
         table = _plan_sweeps(phi, n, TABLE_PLAN, mode, 3, 11)
         for a, b in zip(planned[:3], table[:3]):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('N', [16, 15])
+def test_a_shard_with_chain0_gives_its_rows_of_the_whole_call(cuda, N):
+    """Each kernel on 12 chains, and on the shards [0, 5) and [5, 12) with
+    chain0 = 0 and 5 and the same seed: every output row equal bit for bit."""
+    B, cut = 12, 5
+    g = torch.Generator().manual_seed(N)
+    phi = ((torch.rand((B, 1, N, N), generator=g) - 0.5) * 2 * math.pi).to(cuda)
+    n = torch.zeros((B, 2, N, N), dtype=torch.int32, device=cuda)
+    v = torch.randint(-2, 3, (B, 1, N, N), generator=g, dtype=torch.int32).to(cuda)
+    calls = [
+        (lambda a, b, **k: neighborhood_sweeps(a, b, kappa=0.5, W=2, interval_phi=math.pi,
+                                               interval_n=1, sweeps=3, **k), (phi, n)),
+        (lambda a, b, **k: classic_worms(a, b, kappa=0.5, W=1, worms=2, max_worm_moves=256, **k),
+         (phi, n)),
+        (lambda a, b, **k: worldline_sweeps(a, b, kappa=0.5, W=2, sweeps=3, **k), (n, v)),
+        (lambda a, b, **k: worldline_worms(a, b, kappa=0.5, W=2, worms=2, max_worm_moves=256,
+                                           **k), (n, v)),
+    ]
+    for fn, (a, b) in calls:
+        whole = fn(a, b, generator=torch.Generator().manual_seed(3))
+        parts = [fn(a[lo:hi], b[lo:hi], generator=torch.Generator().manual_seed(3), chain0=lo)
+                 for lo, hi in ((0, cut), (cut, B))]
+        for w, p0, p1 in zip(*(_tensors(out) for out in (whole, *parts))):
+            assert torch.equal(w[:cut], p0) and torch.equal(w[cut:], p1)
+
+
+def _tensors(out):
+    """A kernel wrapper's outputs as a list of tensors (inline dicts by key)."""
+    return [t for x in out for t in ([x[k] for k in sorted(x)] if isinstance(x, dict) else [x])]

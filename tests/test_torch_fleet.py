@@ -109,12 +109,6 @@ def test_inline_is_averaged_over_each_records_steps():
     assert fleet.stats['ClassicWorm']['accepted'] == float(torch.stack(lengths).sum())
 
 
-def test_mesh_is_not_ported_and_raises():
-    S = tsv.Villain(tsv.Lattice2D(4), 0.5, W=1)
-    with pytest.raises(NotImplementedError, match='mesh'):
-        tsv.sample_fleet(S, tv.SiteUpdate(S), chains=2, steps=1, mesh=object(), device='cpu')
-
-
 def test_sample_fleet_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     S = tsv.Villain(tsv.Lattice2D(4), 0.5, W=1)
