@@ -120,11 +120,11 @@ E2. ``bkt-scan.py --L 64 --chains 256 --W 1`` (therm 8·L²) at the 9 κ of
     ``results/bkt-scan-L64.log``: ActionDensity, WindingSq and χ_S/L^(D−2Δ) at
     every κ; B1 launched;
 E3. the same at W=2 (one worm a record) at the 8 κ of
-    ``results/bkt-scan-W2-L64.log``, χ_V/L^(D−2Δ_V) printed, not gated; B1 and
+    ``results/bkt-scan-W2-L64.log``, χ_V/L^(D−2Δ_V) gated as well; B1 and
     B2 (B3) launched;
 E4. ``bkt-scan.py`` at its defaults (L=256, 32 chains, W=1, B1 resident)
     at κ=0.74, therm L²/2: ActionDensity and WindingSq against that row of
-    ``results/bkt-scan-L256.log``, χ_S/L^(D−2Δ) printed;
+    ``results/bkt-scan-L256.log``, and χ_S/L^(D−2Δ);
 E5. ``pod-fleet.py --thin 64 --steps 96`` (10240 chains, L=64, κ=0.74): its
     ActionDensity and WindingSquared against ``results/pod-fleet.log``, and
     its site-updates/s; run again with ``--mesh``, the same fleet bit for bit;
@@ -193,15 +193,44 @@ P3. two processes over gloo (``torch.multiprocessing``, file init) on the one
     records and one gather after them, joined within P3_LIMIT seconds;
 P4. ``python -m supervillain_tpu_torch.benchmark.scaling``: its one-card row
     (no efficiency on one card) and its collective audit (0 inside the
-    records), with the card's name and power limit.
+    records), with the card's name and power limit;
+
+and for the space axis (``parallel/space.py``: each chain's last axis cut into
+slabs with ghost columns, a halo exchange before each step and each later
+color pass, CohomologyUpdate on its gathered slices, the worms and
+WrappingUpdate on the gathered chain) and the worm's cost:
+
+S1. B1's slab entry at N=SLAB_N (4 chains) split 2 and 4 ways: one sweep (the
+    slab residual, a pass, a halo exchange, a pass) against its plain twin on
+    the kernel's Philox draws cut to each slab (sites that differ: rounding
+    flips only, under phase 7's bound) and against the whole torus's call on
+    the same seed (equal bit for bit, accepted counts too), with the largest
+    |Δφ| and |Δr| against the plain twin; the ms per color pass with
+    its halo exchange, the exchange's share, the plain twin's time and the
+    bound, beside the whole torus's one-sweep call;
+S2. ``sample_fleet`` over chain × space meshes of cuda:0 listed 2 and 4 times
+    (1×2, 2×2, 1×4): the W=2 Villain Hammer(fleet=True) at N=8 (κ = 0.5, the
+    shape of __graft_entry__.py's dry run, and 0.1, where n moves), the W=2
+    Worldline Hammer at N=8, and NeighborhoodUpdate at L=1024 with one chain a
+    chains-row, each against the unsharded fleet on one card: fields bit for
+    bit, stats to 1e-5 relative, dn ≡ 0 (mod W) and δm = 0 on every record;
+    the counts set to 0 after the references, the plain twins (and the slab
+    entry's) refused on CUDA tensors, the slab entry, B2 and B5 launched and
+    the whole torus's sweep not;
+S3. ``benchmark/scaling.py``'s audits: a space-sharded Hammer step makes halo
+    exchanges, and a chain mesh's records no collective;
+WC. ``benchmark/worm_cost.py`` (its main) at L=64 and 256, W=1 and 2, 256
+    chains, and with ``--chunked 64``: one JSON line per (L, W), each share in
+    [0, 1].
 
 The next-to-last line is a JSON object describing each kernel (its
 ``max_abs_err`` from the same-draws phases, its launches on its main path, its
 time, its plain version's time and the least time the card could take for the
 same work; ``launches_by_path`` splits its launches by the path that made
 them, ``launches_by_parity`` by even and odd N, and ``at_N255`` and
-``at_N256_same_run`` give O1's times and bounds); the last line is
-``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
+``at_N256_same_run`` give O1's times and bounds; B1's ``slab_entry`` gives
+S2's launches of the slab entry and S1's times and bounds by split); the last
+line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -1450,17 +1479,19 @@ def phase_published_quantities(torch, card, villain, worldline):
 
 # -- the general generator path: eager updates, combinators, Hammers, sample_fleet --
 
-#: The plain twins of the kernels that the general path's eager steps (B1, B2,
-#: B5) and the ported scripts (those and B4) reach.
+#: The plain twins of the kernels that the general path's eager steps (B1, its
+#: slab entry, B2, B5) and the ported scripts (those and B4) reach.
 PLAIN_TWINS = (('supervillain_tpu_torch.ops.sweep', 'plain_sweeps'),
+               ('supervillain_tpu_torch.ops.sweep', 'plain_slab_pass'),
                ('supervillain_tpu_torch.ops.worm', 'plain_worms'),
                ('supervillain_tpu_torch.ops.worldline_worm', 'plain_worldline_worms'),
                ('supervillain_tpu_torch.ops.worldline', 'plain_worldline_sweeps'))
 
 
 class PlainTwinsRefused:
-    """Inside the block a plain twin handed a CUDA tensor raises: on the card
-    the eager steps and the scripts must launch the kernels, never their twins."""
+    """Inside the block a plain twin of PLAIN_TWINS handed a CUDA tensor
+    raises: on the card the eager steps and the scripts must launch the
+    kernels, never their twins."""
 
     def __enter__(self):
         import importlib
@@ -1987,15 +2018,14 @@ def phase_scan_w2(torch, card):
     results = g['results']
     for kappa, ours in results.items():
         say(f'    E3 κ={kappa} χ_V/L^(D-2Δ_V) {shown(ours["chiV_scaled"])} against '
-            f'{shown(log[kappa]["chiV_scaled"])}: pull '
-            f'{signed_pull(ours["chiV_scaled"], log[kappa]["chiV_scaled"]):+.3f} (not gated)')
-    gate_pulls('E3', scan_against_log('E3', results, log, SCAN_GATED))
+            f'{shown(log[kappa]["chiV_scaled"])}')
+    gate_pulls('E3', scan_against_log('E3', results, log, SCAN_GATED + ('chiV_scaled',)))
     return launches
 
 
 def phase_scan_l256(torch, card):
     """E4: bkt-scan.py at its defaults (L=256, W=1), κ=0.74, against
-    results/bkt-scan-L256.log: the local quantities."""
+    results/bkt-scan-L256.log: ActionDensity, WindingSq and χ_S/L^(D−2Δ)."""
     from supervillain_tpu_torch.ops.sweep import sweep_plan
     log = read_scan_log(repo_root() / RESULTS / 'bkt-scan-L256.log')
     plan = sweep_plan(256)
@@ -2005,10 +2035,7 @@ def phase_scan_l256(torch, card):
     (g,), launches = script_phase(torch, card, 'E4', [('bkt-scan.py', [
         '--kappas', 0.74, '--therm-sweeps', 32768])], ('sweep',))
     ours, theirs = g['results'][0.74], log[0.74]
-    say(f'    E4 κ=0.74 χ_S/L^(D-2Δ) {shown(ours["chi_scaled"])} against '
-        f'{shown(theirs["chi_scaled"])}: pull '
-        f'{signed_pull(ours["chi_scaled"], theirs["chi_scaled"]):+.3f} (not gated)')
-    gate_pulls('E4', scan_against_log('E4', {0.74: ours}, {0.74: theirs}, ('S', 'W2')))
+    gate_pulls('E4', scan_against_log('E4', {0.74: ours}, {0.74: theirs}, SCAN_GATED))
     return launches
 
 
@@ -2866,6 +2893,274 @@ def phase_scaling(torch, card):
         f'{time.perf_counter() - t0!r} s (card: {card})')
 
 
+# -- the space axis: one chain's lattice over slabs, with halo exchange ---------------
+
+#: S1's torus and chains, and its splits.
+SLAB_N, SLAB_CHAINS, SLAB_SPLITS = 1024, 4, (2, 4)
+#: S2's fleets (the shapes of __graft_entry__.py dryrun_multichip): N, κ and W,
+#: chains a chains-row, records.
+SPACE_FLEETS = {'Villain Hammer(fleet=True) W=2 κ=0.5': ('Villain', 0.5, 2),
+                'Villain Hammer(fleet=True) W=2 κ=0.1': ('Villain', 0.1, 2),
+                'Worldline Hammer(fleet=True) W=2 κ=0.5': ('Worldline', 0.5, 2)}
+SPACE_N, SPACE_CHAINS, SPACE_RECORDS = 8, 4, 3
+#: S2's NeighborhoodUpdate: L, records (one chain a chains-row).
+SPACE_LARGE_N, SPACE_LARGE_RECORDS = 1024, 3
+#: The chain × space meshes of S2, over cuda:0 listed chains·space times.
+SPACE_MESHES = ((1, 2), (2, 2), (1, 4))
+
+
+def one_card_row(torch, split, B, N):
+    """A :class:`Row` of ``split`` slabs of one chains-row on cuda:0, as
+    ``parallel/space.py`` builds it for a 1 × split mesh of cuda:0."""
+    from supervillain_tpu_torch.ops.shard import Slab
+    from supervillain_tpu_torch.parallel import space
+    width = N // split
+    device = torch.device('cuda', 0)
+    local = [(s, device, Slab(N, s * width, width, space.GHOST)) for s in range(split)]
+    return space.Row(0, range(B), split, local, None)
+
+
+def phase_slab_kernel(torch, card):
+    """S1: B1's slab entry at N=SLAB_N split 2 and 4 ways: one sweep (slab
+    residual, a pass, a halo exchange, a pass) against the plain slab pass
+    on the kernel's Philox draws cut to each slab, and against the whole
+    torus's kernel call on the same seed; the ms per color pass with its halo
+    and its bound.  Returns the slab entry's row of the kernels line."""
+    from supervillain_tpu_torch.ops import kernels
+    from supervillain_tpu_torch.ops.sweep import (STREAMING_PLAN, KernelSweepDraws, kernel_sweeps,
+                                                  plain_slab_pass, slab_pass, slab_residual)
+    from supervillain_tpu_torch.ops.shard import SlabGenerator
+    from supervillain_tpu_torch.parallel import space
+
+    N, B = SLAB_N, SLAB_CHAINS
+    splits = ' and '.join(map(str, SLAB_SPLITS))
+    say(f'== phase S1: B1\'s slab entry at N={N}, {B} chains, split {splits} '
+        f'ways (ghost {space.GHOST}), against its plain twin on the kernel\'s draws and against '
+        'the whole torus\'s call on the same seed')
+    t0 = time.perf_counter()
+    host = torch.Generator().manual_seed(2027)
+    phi = ((torch.rand((B, 1, N, N), generator=host) - 0.5) * 2 * math.pi).cuda()
+    n = torch.randint(-1, 2, (B, 2, N, N), generator=host, dtype=torch.int32).mul_(2).cuda()
+    sweep = dict(kappa=0.5, W=2, interval_phi=math.pi, interval_n=1, p_n=None)
+    seed = kernels.seed_from(torch.Generator().manual_seed(71))
+    whole = kernel_sweeps(phi, n, STREAMING_PLAN, sweeps=1,
+                          generator=torch.Generator().manual_seed(71), **sweep)
+    whole_ms, _ = time_ms(torch, lambda: kernel_sweeps(
+        phi, n, STREAMING_PLAN, sweeps=1, generator=torch.Generator().manual_seed(71), **sweep), 20)
+    draws = KernelSweepDraws(seed, B=B, N=N, interval_phi=math.pi, interval_n=1, p_n=None,
+                             zmode=False, fdt=torch.float32, idt=torch.int32, device='cuda')
+    passes = [draws(0), draws(1)]
+    result = {}
+    for split in SLAB_SPLITS:
+        row = one_card_row(torch, split, B, N)
+        gens = [SlabGenerator(torch.Generator(device='cuda'), 0, B, slab)
+                for _, _, slab in row.local]
+        start = [{'phi': phi[..., slab.col0:slab.col0 + slab.width].contiguous(),
+                  'n': n[..., slab.col0:slab.col0 + slab.width].contiguous()}
+                 for _, _, slab in row.local]
+
+        def sweep_slabs(step):
+            states = space.halo_exchange(row, start)
+            states = [st | {'r': slab_residual(st['phi'], st['n'])} for st in states]
+            accepted = 0
+            for color in (0, 1):
+                if color:
+                    states = space.halo_exchange(row, states)
+                for j, ((_, _, slab), g) in enumerate(zip(row.local, gens)):
+                    p, m, r, acc = step(states[j], color, slab, g)
+                    states[j] = {'phi': p, 'n': m, 'r': r}
+                    accepted = accepted + acc
+            return states, accepted
+
+        def kernel_step(st, color, slab, g):
+            return slab_pass(st['phi'], st['n'], st['r'], color, generator=g, seed=seed, **sweep)
+
+        def plain_step(st, color, slab, g):
+            cut = {k: slab.cut(v) for k, v in passes[color].items()}
+            return plain_slab_pass(st['phi'], st['n'], st['r'], color, cut, slab, kappa=0.5, W=2)
+
+        got, got_acc = sweep_slabs(kernel_step)
+        want, want_acc = sweep_slabs(plain_step)
+
+        def joined(states, k):
+            return torch.cat([slab.own(st[k]) for (_, _, slab), st in zip(row.local, states)], -1)
+
+        sites = int((joined(got, 'phi') != joined(want, 'phi')).sum())
+        links = int((joined(got, 'n') != joined(want, 'n')).sum())
+        torus_sites = int((joined(got, 'phi') != whole[0]).sum())
+        torus_links = int((joined(got, 'n') != whole[1]).sum())
+        err = max(float((joined(got, k) - joined(want, k)).abs().max()) for k in ('phi', 'r'))
+        say(f'  split {split}: the slab kernel against its plain twin: φ differs at {sites} of '
+            f'{B * N * N} sites, n at {links} of {2 * B * N * N} links (rounding flips; bound '
+            f'{SAME_DRAWS_SITES} of them); against the whole torus\'s kernel call: {torus_sites} '
+            f'sites, {torus_links} links; accepted {got_acc.tolist()} against the whole call\'s '
+            f'{whole[2].tolist()}; max |Δφ|, |Δr| against the plain twin {err!r}')
+        require(sites <= SAME_DRAWS_SITES * B * N * N and links <= SAME_DRAWS_SITES * 2 * B * N * N,
+                f'S1 split {split}: the slab kernel and its plain twin part on the same draws')
+        require(torus_sites == 0 and torus_links == 0 and torch.equal(got_acc, whole[2]),
+                f'S1 split {split}: the slab kernel differs from the whole torus\'s call')
+
+        def one_pass(step):
+            def run():
+                states = space.halo_exchange(row, got)
+                return [step(st, 0, slab, g)
+                        for (_, _, slab), g, st in zip(row.local, gens, states)]
+            return run
+
+        ms, _ = time_ms(torch, one_pass(kernel_step), 20)
+        halo_ms, _ = time_ms(torch, lambda: space.halo_exchange(row, got), 20)
+        plain_ms, _ = time_ms(torch, one_pass(plain_step), 3)
+        # A pass reads φ, n and r (20 B a site) and writes them once; it
+        # updates half the torus's sites.
+        nbytes = 2 * 20 * B * N * N
+        bound_ms, bound_by = bound(nbytes, OPS_VILLAIN_SITE * B * N * N / 2)
+        say(f'  [{card}] split {split}: {ms!r} ms per color pass with its halo exchange ({B} '
+            f'chains, N={N}; CUDA events, mean of 20), of which the halo exchange alone '
+            f'{halo_ms!r} ms; plain twin {plain_ms!r} ms; bound {bound_ms!r} ms ({bound_by}), '
+            f'{ms / bound_ms!r}× the bound; the whole torus\'s call (one sweep: residual, '
+            f'2 passes, sums) {whole_ms!r} ms')
+        result[split] = {'ms_per_color_pass': ms, 'halo_exchange_ms': halo_ms,
+                         'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
+                         'whole_torus_sweep_ms': whole_ms, 'max_abs_err': err,
+                         'differing_sites': sites, 'differing_links': links}
+    torch.cuda.synchronize()
+    say(f'  S1: {time.perf_counter() - t0!r} s (card: {card})')
+    return result
+
+
+def space_counters():
+    from supervillain_tpu_torch.ops.sweep import slab_pass
+    return general_counters() | {'slab': slab_pass}
+
+
+def phase_space_fleets(torch, card):
+    """S2: sample_fleet over chain × space meshes of cuda:0 listed 2 and 4
+    times: the W=2 Villain and Worldline Hammer(fleet=True) at N=SPACE_N and
+    NeighborhoodUpdate at L=SPACE_LARGE_N, one chain a chains-row, each equal
+    to the unsharded fleet bit for bit on every field, with the invariants
+    held on every record.  The unsharded references run first; then every
+    count is set to 0, the sharded fleets run with the plain twins refused
+    on CUDA tensors, and the counts are read.  Returns the launches."""
+    import supervillain_tpu_torch as sv
+    from supervillain_tpu_torch.generators import villain as gv, worldline as gw
+    from supervillain_tpu_torch.ops import calculus as calc
+    from supervillain_tpu_torch.parallel import ChainMesh, chain_space_mesh, space
+
+    say(f'== phase S2: space-sharded fleets on cuda:0 listed 2 and 4 times (meshes '
+        f'{", ".join(f"{c}x{s}" for c, s in SPACE_MESHES)}): {", ".join(SPACE_FLEETS)} at '
+        f'N={SPACE_N} ({SPACE_CHAINS} chains a chains-row, {SPACE_RECORDS} records), '
+        f'NeighborhoodUpdate at L={SPACE_LARGE_N} (one chain a chains-row, '
+        f'{SPACE_LARGE_RECORDS} records), each against the unsharded fleet')
+    t0 = time.perf_counter()
+    runs = []
+    for name, (action, kappa, W) in SPACE_FLEETS.items():
+        S = getattr(sv, action)(sv.Lattice2D(SPACE_N), kappa, W=W)
+        G = (gv if action == 'Villain' else gw).Hammer(S, fleet=True)
+        runs += [(name, S, G, chains, SPACE_RECORDS, (chains, space))
+                 for chains, space in SPACE_MESHES]
+    SL = sv.Villain(sv.Lattice2D(SPACE_LARGE_N), 0.5, W=1)
+    runs += [(f'NeighborhoodUpdate L={SPACE_LARGE_N} W=1', SL, gv.NeighborhoodUpdate(SL), chains,
+              SPACE_LARGE_RECORDS, (chains, space)) for chains, space in SPACE_MESHES]
+
+    def fleet(S, G, chains, records, mesh):
+        return sv.sample_fleet(S, G, chains=chains * (SPACE_CHAINS if S.Lattice.N == SPACE_N
+                                                      else 1),
+                               steps=records, seed=23, mesh=mesh)
+
+    references = {}
+    for name, S, G, chains, records, shape in runs:
+        if (name, chains) not in references:
+            t1 = time.perf_counter()
+            references[(name, chains)] = fleet(S, G, chains, records, ChainMesh(['cuda:0']))
+            torch.cuda.synchronize()
+            references[(name, chains), 's'] = (time.perf_counter() - t1) / records
+    counters = space_counters()
+    for f in counters.values():
+        f.launches = 0
+    halo = space.halo_exchange.calls
+    with PlainTwinsRefused():
+        for name, S, G, chains, records, shape in runs:
+            t1 = time.perf_counter()
+            mesh = chain_space_mesh(*shape, ['cuda:0'] * (shape[0] * shape[1]))
+            got = fleet(S, G, chains, records, mesh)
+            torch.cuda.synchronize()
+            seconds = (time.perf_counter() - t1) / records
+            want = references[(name, chains)]
+            diff = fleet_differences(got, want)
+            fields_diff = [d for d in diff if d != 'stats']
+            stats_err = max(abs(got.stats[t][k] - v) / max(abs(v), 1e-30)
+                            for t, st in want.stats.items() for k, v in st.items())
+            L = S.Lattice
+            if action_is_worldline(S):
+                bad = int((calc.delta(L, 1, torch.as_tensor(got.columns['m'])) != 0).sum())
+            else:
+                dn = calc.d(L, 1, torch.as_tensor(got.columns['n']))
+                bad = int((torch.remainder(dn, int(S.W)) != 0).sum())
+            same = ('fields equal bit for bit' if not fields_diff
+                    else 'differs in ' + ', '.join(fields_diff))
+            say(f'  [{card}] {name}, mesh {shape[0]}x{shape[1]}: {same}'
+                f' to the unsharded fleet; stats within {stats_err!r} relative; invariant broken '
+                f'at {bad} cells; {seconds!r} s per record (unsharded '
+                f'{references[(name, chains), "s"]!r})')
+            require(not fields_diff, f'S2 {name} {shape}: differs from the unsharded fleet: {diff}')
+            require(stats_err <= 1e-5, f'S2 {name} {shape}: stats differ by {stats_err}')
+            require(bad == 0, f'S2 {name} {shape}: the invariant is broken')
+    launches = {k: f.launches for k, f in counters.items()}
+    launches['halo_exchanges'] = space.halo_exchange.calls - halo
+    say(f'  S2: {time.perf_counter() - t0!r} s (card: {card}); launches {launches}')
+    require(launches['slab'] > 0 and launches['worm'] > 0 and launches['worldline_worm'] > 0,
+            f'S2: a kernel of the space path never launched: {launches}')
+    require(launches['sweep'] == 0, f'S2: the whole-torus sweep ran on a slab: {launches}')
+    return launches
+
+
+def action_is_worldline(S):
+    return type(S).__name__ == 'Worldline'
+
+
+def phase_space_audit(torch, card):
+    """S3: benchmark/scaling.py's audits on the card: the space-sharded Hammer
+    step (1×4 mesh of cuda:0, N=32) makes halo exchanges, and a chain mesh's
+    records no collective."""
+    from supervillain_tpu_torch.benchmark.scaling import (audit_collectives,
+                                                          audit_space_collectives)
+    from supervillain_tpu_torch.parallel import chain_mesh
+    say('== phase S3: the space audit of benchmark/scaling.py and the chain audit')
+    space_audit = audit_space_collectives(N=32, space=4)
+    chain_audit = audit_collectives(N=32, chains=64, steps=3, mesh=chain_mesh())
+    say(f'  [{card}] space-sharded Hammer step: {space_audit}; chain mesh records: {chain_audit}')
+    require(space_audit['halo_exchanges'] > 0, f'S3: no halo exchange: {space_audit}')
+    require(chain_audit['inside_records'] == 0, f'S3: collectives inside records: {chain_audit}')
+
+
+#: WC's chains: a quarter of worm_cost.py's default 1024, to keep the whole run's time.
+WC_CHAINS = 256
+
+
+def phase_worm_cost(torch, card):
+    """WC: python -m supervillain_tpu_torch.benchmark.worm_cost at L=64 and
+    256, W=1 and 2, WC_CHAINS chains, and with --chunked 64 (W=1): one JSON
+    line per (L, W)."""
+    import contextlib
+    import io
+    from supervillain_tpu_torch.benchmark import worm_cost
+    say(f'== phase WC: benchmark/worm_cost.py --L 64 256 --W 1 2 --chains {WC_CHAINS}, and '
+        '--chunked 64 (its main, in this process)')
+    t0 = time.perf_counter()
+    rows = []
+    for extra in ([], ['--chunked', '64']):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            worm_cost.main(['--L', '64', '256', '--W', '1', '2', '--chains', str(WC_CHAINS),
+                            *extra])
+        for line in out.getvalue().splitlines():
+            say(f'  | {line}')
+        rows += [json.loads(line) for line in out.getvalue().splitlines() if line.startswith('{')]
+    require(len(rows) == 6 and all(0 <= r['worm_share'] <= 1 for r in rows),
+            f'WC: expected 6 rows with shares in [0, 1]: {rows}')
+    say(f'  WC: {time.perf_counter() - t0!r} s (card: {card})')
+
+
 def main():
     import torch
 
@@ -2910,6 +3205,10 @@ def main():
     digests, mesh_launches = phase_mesh_fleets(torch, card)
     phase_processes(torch, card, digests)
     phase_scaling(torch, card)
+    slab = phase_slab_kernel(torch, card)
+    space_launches = phase_space_fleets(torch, card)
+    phase_space_audit(torch, card)
+    phase_worm_cost(torch, card)
     launches |= w_launches
     ms |= w_ms
     plain_ms |= w_plain_ms
@@ -2940,7 +3239,9 @@ def main():
                               'odd N against the plain twins (O1)': odd_launches.get(name, 0),
                               'the scripts at their odd default N (O2)': odd_scripts[name],
                               'D >= 3 (D2-D4)': 0,
-                              'sharded fleets on the card (P2)': mesh_launches[name]},
+                              'sharded fleets on the card (P2)': mesh_launches[name],
+                              'space-sharded fleets (S2)': space_launches.get(
+                                  'slab' if name == 'sweep' else name, 0)},
          'launches_by_parity': {'even': launches[name] + exact.get(name, 0)
                                 + general.get(name, 0) + scripts[name],
                                 'odd': odd_launches.get(name, 0) + odd_scripts[name]},
@@ -2948,6 +3249,8 @@ def main():
          'ms': ms[name], 'plain_ms': plain_ms[name], 'bound_ms': bounds[name][0],
          'bound_by': bounds[name][1], 'library_ms': None,
          'at_N255': odd(name, ODD_LARGE_N), 'at_N256_same_run': odd(name, 256)}
+        | ({'slab_entry': {'launches': space_launches['slab'], 'at_N1024_by_split': slab}}
+           if name == 'sweep' else {})
         for name, (src, replaces) in sources.items()]}
     say(f'card: {card}')
     say(json.dumps(report))

@@ -16,10 +16,14 @@ card, and the group's row starts every process at a barrier and is timed by
 the slowest.  :func:`audit_collectives`, the counterpart of the JAX script's
 count of collectives in the compiled step, reads the count of
 :mod:`..parallel.distributed` over a sharded fleet's records: chains are
-independent, so it must read 0 inside the records.  The space axis (the
-lattice sharded over cards) is not ported, so the script prints its audit as
-unavailable.  Every time is printed and written with the card's name and
-power limit.
+independent, so it must read 0 inside the records.
+:func:`audit_space_collectives`, the counterpart of the JAX script's count of
+collective permutes in a space-sharded Hammer step, counts the halo
+exchanges, gathers and scatters of :mod:`..parallel.space` in one step of the
+generic Villain ``Hammer(fleet=True)`` on a chain × space mesh: the halo
+exchanges must be more than 0 (a count of 0 would mean that no update ran on
+the slabs).  Every time is printed and written with the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -176,6 +180,33 @@ def audit_collectives(N=32, chains=64, steps=10, kappa=0.5, mesh=None, device='c
             'shards': mesh.size, 'processes': distributed.world()}
 
 
+def audit_space_collectives(N=32, space=4, kappa=0.5, W=2, device='cuda'):
+    """Count the halo exchanges, slice and chain gathers and scatters of
+    :mod:`..parallel.space`, and the cross-process calls, over one record of
+    the generic Villain ``Hammer(fleet=True)`` on a 1 × ``space`` mesh of
+    ``device`` listed ``space`` times (one chain).  The halo exchanges must be
+    more than 0: the local updates run on the slabs."""
+    import supervillain_tpu_torch as sv
+    from ..generators import villain as gv
+    from ..parallel import distributed, sample_fleet
+    from ..parallel import space as spaced
+    from ..parallel.mesh import chain_space_mesh
+
+    counters = {'halo_exchanges': spaced.halo_exchange, 'slice_gathers': spaced.gather_slices,
+                'chain_gathers': spaced.gather_chain, 'chain_scatters': spaced.scatter_chain}
+    before = {k: f.calls for k, f in counters.items()}
+    calls = distributed.collective.calls
+    S = sv.Villain(sv.Lattice2D(N), kappa, W=W)
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    sample_fleet(S, gv.Hammer(S, fleet=True), chains=1, steps=1, seed=0,
+                 mesh=chain_space_mesh(1, space, [device] * space), keep_fields=False)
+    counts = {k: f.calls - before[k] for k, f in counters.items()}
+    counts['cross_process_calls'] = distributed.collective.calls - calls
+    return counts | {'N': N, 'space': space, 'steps': 1}
+
+
 if __name__ == '__main__':
     import argparse
     import json
@@ -199,11 +230,13 @@ if __name__ == '__main__':
     mesh = chain_mesh(['cpu'] if args.device == 'cpu' else None)
     collectives = audit_collectives(N=args.N, chains=args.chains_per_device * mesh.size,
                                     mesh=mesh, device=args.device)
-    # The space axis (the lattice sharded over cards, with halo exchange) is not ported.
-    space_collectives = {'unavailable': 'the space axis (chain_space_mesh) is not ported'}
+    space_collectives = (audit_space_collectives(N=args.N, device=args.device)
+                         if distributed.world() == 1 else
+                         {'unavailable': 'the space audit runs in one process'})
     if distributed.rank() == 0:
         print('collectives inside the sharded fleet\'s records:', collectives)
-        print('collective ops in the space-sharded Hammer step:', space_collectives)
+        print('halo exchanges, gathers and scatters in a space-sharded Hammer step:',
+              space_collectives)
     if args.json and distributed.rank() == 0:
         where = card() if args.device == 'cuda' else 'cpu'
         payload = {

@@ -300,6 +300,99 @@ __global__ void inline_sums(const float* __restrict__ r, const int* __restrict__
 }
 
 
+// -- the slab form ------------------------------------------------------------------
+//
+// A chain × space mesh (parallel/space.py) cuts each chain's torus along x
+// into slabs of `width` columns and holds each slab padded with `ghost`
+// columns of its neighbours on either side: fields (B, ·, N, P), P = width +
+// 2·ghost, padded column j being global column (first + j) mod N.  The host
+// fills the ghosts (a halo exchange) before every pass.  A pass runs the
+// streaming regime's arithmetic (propose) on every site of its colour in the
+// padded columns 1..P−2, the wrap holding along t only: the sites of the
+// first ghost column on each side change the slab's own boundary links as the
+// neighbour's own pass does, on the same draws, since a site's Philox counter
+// is its global t·N + x.  So a slab's own columns come out bit for bit as on
+// the whole torus.  One thread per (chain, site) of the columns 1..P−2, half
+// of them idle: the simple design.
+
+// r_mu[t, j] = φ[(t, j) + e_mu] − φ[t, j] − 2π n_mu[t, j] on the padded slab;
+// the forward x-link of the last column leaves it and is set to 0.
+__global__ void init_residual_slab(const float* __restrict__ phi, const int* __restrict__ n,
+                                   float* __restrict__ r, int B, int N, int P) {
+    const long long NP = (long long)N * P;
+    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (idx >= B * NP) return;
+    const long long chain = idx / NP;
+    const int s = (int)(idx - chain * NP);
+    const int t = s / P, j = s - t * P;
+    const int tp = t + 1 == N ? 0 : t + 1;
+    const float* ph = phi + chain * NP;
+    const int* n0 = n + chain * 2 * NP;
+    float* r0 = r + chain * 2 * NP;
+    const float p = ph[s];
+    r0[s] = (ph[tp * P + j] - p) - TWO_PI * (float)n0[s];
+    r0[NP + s] = j + 1 < P ? (ph[s + 1] - p) - TWO_PI * (float)n0[NP + s] : 0.f;
+}
+
+__global__ void color_pass_slab(float* __restrict__ phi, int* __restrict__ n,
+                                float* __restrict__ r, int* __restrict__ accepted, int B, int N,
+                                int P, int first, int ghost, int width, int color, uint2 key,
+                                uint32_t chain0, float kappa, int W, float interval_phi,
+                                int interval_n, float p_n) {
+    const int inner = P - 2;
+    const long long per_chain = (long long)N * inner;
+    const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    int chain = -1;
+    bool active = idx < B * per_chain;
+    bool accept = false;
+    bool own = false;
+    if (active) {
+        chain = (int)(idx / per_chain);
+        const int k = (int)(idx - chain * per_chain);
+        const int t = k / inner;
+        const int j = k - t * inner + 1;
+        const int x = (first + j) % N;
+        active = ((t + x) & 1) == color;
+        own = j >= ghost && j < ghost + width;
+        if (active) {
+            const long long NP = (long long)N * P;
+            const int s = t * P + j;
+            const int tm = t == 0 ? N - 1 : t - 1;
+            const int lb0 = tm * P + j, lb1 = s - 1;
+
+            float* ph = phi + chain * NP;
+            int* n0 = n + chain * 2 * NP;
+            int* n1 = n0 + NP;
+            float* r0 = r + chain * 2 * NP;
+            float* r1 = r0 + NP;
+
+            const float rf0 = r0[s], rb0 = r0[lb0], rf1 = r1[s], rb1 = r1[lb1];
+            const Move m = propose((uint32_t)(t * N + x), chain0 + (uint32_t)chain,
+                                   (uint32_t)color, key, kappa, W, interval_phi, interval_n, p_n, rf0, rb0, rf1, rb1);
+            accept = m.accept;
+            if (accept) {
+                ph[s] += m.dphi;
+                n0[s] += __float2int_rn(m.cf0);
+                n0[lb0] += __float2int_rn(m.cb0);
+                n1[s] += __float2int_rn(m.cf1);
+                n1[lb1] += __float2int_rn(m.cb1);
+                r0[s] = rf0 + m.crf0;
+                r0[lb0] = rb0 + m.crb0;
+                r1[s] = rf1 + m.crf1;
+                r1[lb1] = rb1 + m.crb1;
+            }
+        }
+    }
+    const bool counted = active && own;
+    const unsigned peers = __match_any_sync(0xffffffffu, counted ? chain : -1);
+    const unsigned votes = __ballot_sync(0xffffffffu, accept && own);
+    if (counted && (int)(threadIdx.x & 31) == __ffs(peers) - 1) {
+        const int c = __popc(votes & peers);
+        if (c) atomicAdd(accepted + chain, c);
+    }
+}
+
+
 // -- the resident regime ----------------------------------------------------------
 
 namespace cg = cooperative_groups;
@@ -645,6 +738,38 @@ int sv_sweeps_resident(const float* phi_in, const int* n_in, float* phi, int* n,
                            cycles, N, k, hmax, sweeps, key, chain0, kappa, W, interval_phi,
                            interval_n, p_n);
     if (e) return refused(e);
+    return cudaGetLastError();
+}
+
+// The residual of a batch of padded slabs (B, ·, N, P) into r (B, 2, N, P).
+int sv_slab_residual(const float* phi, const int* n, float* r, int B, int N, int P,
+                     void* stream_ptr) {
+    const int threads = 256;
+    const long long sites = (long long)B * N * P;
+    init_residual_slab<<<(unsigned)((sites + threads - 1) / threads), threads, 0,
+                         (cudaStream_t)stream_ptr>>>(phi, n, r, B, N, P);
+    return cudaGetLastError();
+}
+
+// One colour pass in place over a batch of padded slabs whose column 0 is
+// global column `first`, the slab's own columns being ghost..ghost+width−1;
+// accepted (B,) int32 adds the accepts of its own sites.  The Philox pass
+// word is the colour, as in the whole torus's first sweep of a call (a step
+// of the space-sharded NeighborhoodUpdate is one sweep on a fresh seed); W ==
+// 0 z-mode, p_n < 0 no zero inflation, as sv_sweeps takes them.
+int sv_slab_color_pass(float* phi, int* n, float* r, int* accepted, int B, int N, int P,
+                       int first, int ghost, int width, int color, unsigned long long seed,
+                       unsigned int chain0, float kappa, int W, float interval_phi,
+                       int interval_n, float p_n, void* stream_ptr) {
+    if (N % 2 != 0 || P < 3 || ghost < 1 || width < 1 || ghost + width > P - 1)
+        return cudaErrorInvalidValue;
+    const int threads = 256;
+    const long long sites = (long long)B * N * (P - 2);
+    const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+    color_pass_slab<<<(unsigned)((sites + threads - 1) / threads), threads, 0,
+                      (cudaStream_t)stream_ptr>>>(phi, n, r, accepted, B, N, P, first, ghost,
+                                                  width, color, key, chain0, kappa, W,
+                                                  interval_phi, interval_n, p_n);
     return cudaGetLastError();
 }
 

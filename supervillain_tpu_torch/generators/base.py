@@ -149,6 +149,45 @@ class Generator:
         return '\n'.join(lines)
 
 
+class PassUpdate(Generator):
+    """A local update made of passes: a checkerboard color each, or one over
+    every link.  A pass reads a site's or a link's fields and those of its
+    nearest neighbours only, so a chain × space mesh
+    (:mod:`..parallel.space`) runs each pass on every slab of a chain, with a
+    halo exchange of the state before it, and then this code unchanged.
+
+    ``begin`` makes the state (the fields and what the passes carry between
+    them), ``run_pass`` runs one pass of :meth:`pass_keys` and returns the
+    state and the pass's accepted count and acceptance sum per chain, over the
+    sites the batch owns (:func:`..ops.shard.site_sum`), ``finish`` puts the
+    state's fields back into the configuration, and ``tally`` adds the step's
+    totals to the stats."""
+
+    def begin(self, generator, cfg):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def pass_keys(self):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def run_pass(self, generator, state, key):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def finish(self, cfg, state):
+        return cfg | {k: state[k] for k in self.fields}
+
+    def tally(self, stats, chains, accepted, acceptance):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def step(self, generator, cfg, stats):
+        state = self.begin(generator, cfg)
+        accepted = acceptance = 0
+        for key in self.pass_keys():
+            state, a, p = self.run_pass(generator, state, key)
+            accepted, acceptance = accepted + a, acceptance + p
+        chains = state[self.fields[0]].shape[0]
+        return self.finish(cfg, state), self.tally(stats, chains, accepted, acceptance), {}
+
+
 class DoNothing(Generator):
     """Identity update with a constant inline observable ``one``."""
 

@@ -28,10 +28,10 @@ import torch
 
 from ..models import Villain
 from ..ops import calculus as calc
-from ..ops import shard
-from ..ops.sweep import SweepDraws, neighborhood_sweeps, plain_sweeps
+from ..ops import kernels, shard
+from ..ops.sweep import SweepDraws, neighborhood_sweeps, plain_sweeps, slab_pass, slab_residual
 from ..ops.worm import _LINK_DIR, _LINK_OFF, _MOVES, _PLAQUETTE, classic_worms
-from .base import Generator, metropolis, uniform_nonzero_int
+from .base import Generator, PassUpdate, metropolis, uniform_nonzero_int
 from .combining import KeepEvery, Sequentially
 
 TWO_PI = 2 * np.pi
@@ -78,17 +78,23 @@ def exact_delta_s(kappa, L, dphi, n, change_z):
     return calc.face_sum(L, 1, link_delta_s(kappa, dphi, n, calc.d(L, 0, change_z)))[:, 0]
 
 
+def slice_delta_s(kappa, r_slice, h):
+    """ΔS per chain of adding h (B,) to n_μ on a slice, from the residual's
+    component μ on it, (B, k) in the slice's order: one sum over the k links,
+    the same call on the same numbers however the lattice is laid out."""
+    change_r = (-TWO_PI * h.to(r_slice.dtype))[:, None]
+    return torch.sum((kappa / 2) * change_r * (2 * r_slice + change_r), dim=1)
+
+
 def cohomology_delta_s(kappa, r_mu, mask, h):
     """ΔS per chain of adding h (B,) to n_μ on the slice ``mask`` (x_μ = 0),
     from the residual's component μ (B, N, ..., N)."""
-    change_r = (-TWO_PI * h.to(r_mu.dtype)).reshape((-1,) + (1,) * mask.dim())
-    return torch.sum(torch.where(mask, (kappa / 2) * change_r * (2 * r_mu + change_r), 0),
-                     dim=tuple(range(1, r_mu.dim())))
+    return slice_delta_s(kappa, r_mu[:, mask], h)
 
 
 # -- the updates ------------------------------------------------------------------
 
-class SiteUpdate(Generator):
+class SiteUpdate(PassUpdate):
     r"""Checkerboarded Metropolis update of φ alone:
     ``Δφ_x ~ U(-interval_phi, +interval_phi)``, n fixed."""
 
@@ -101,29 +107,34 @@ class SiteUpdate(Generator):
         self.Lattice = action.Lattice
         self.interval_phi = float(interval_phi)
 
-    def step(self, generator, cfg, stats):
-        S, L = self.Action, self.Lattice
+    def begin(self, generator, cfg):
         phi, n = cfg['phi'], cfg['n']
+        return {'phi': phi, 'n': n, 'r': calc.d(self.Lattice, 0, phi) - TWO_PI * n.to(phi.dtype)}
+
+    def pass_keys(self):
+        return range(self.Lattice.n_colors)
+
+    def run_pass(self, generator, state, color):
+        S, L = self.Action, self.Lattice
+        phi, r = state['phi'], state['r']
         B = phi.shape[0]
-        r = calc.d(L, 0, phi) - TWO_PI * n.to(phi.dtype)
-        accepted = acceptance = 0
-        for color in range(L.n_colors):
-            mask = L.mask(color, phi.device)
-            prop = (2 * _uniform(generator, (B,) + L.dims, phi) - 1) * self.interval_phi
-            change_phi = torch.where(mask, prop, 0)[:, None]
-            dS = site_delta_s(S.kappa, L, r, change_phi)
-            accept, prob = metropolis(_uniform(generator, (B,) + L.dims, phi), dS)
-            accept = accept & mask
-            applied = torch.where(accept, change_phi[:, 0], 0)[:, None]
-            phi = phi + applied
-            r = r + calc.d(L, 0, applied)
-            accepted = accepted + accept.sum(dim=_spatial(L))
-            acceptance = acceptance + torch.where(mask, prob, 0).sum(dim=_spatial(L))
-        stats = self._tally(stats, B, accepted, L.sites, acceptance / L.sites)
-        return cfg | {'phi': phi}, stats, {}
+        mask = shard.mask(generator, L, color, phi.device)
+        prop = (2 * _uniform(generator, (B,) + L.dims, phi) - 1) * self.interval_phi
+        change_phi = torch.where(mask, prop, 0)[:, None]
+        dS = site_delta_s(S.kappa, L, r, change_phi)
+        accept, prob = metropolis(_uniform(generator, (B,) + L.dims, phi), dS)
+        accept = accept & mask
+        applied = torch.where(accept, change_phi[:, 0], 0)[:, None]
+        state = state | {'phi': phi + applied, 'r': r + calc.d(L, 0, applied)}
+        return (state, shard.site_sum(generator, accept, L.D),
+                shard.site_sum(generator, torch.where(mask, prob, 0), L.D))
+
+    def tally(self, stats, chains, accepted, acceptance):
+        L = self.Lattice
+        return self._tally(stats, chains, accepted, L.sites, acceptance / L.sites)
 
 
-class LinkUpdate(Generator):
+class LinkUpdate(PassUpdate):
     r"""Simultaneous Metropolis update of every link's n alone:
     ``Δn_ℓ ∈ W·(±{1..interval_n})``, φ fixed."""
 
@@ -138,20 +149,29 @@ class LinkUpdate(Generator):
         self.Lattice = action.Lattice
         self.interval_n = int(interval_n)
 
-    def step(self, generator, cfg, stats):
+    def begin(self, generator, cfg):
+        return {'phi': cfg['phi'], 'n': cfg['n']}
+
+    def pass_keys(self):
+        return (None,)
+
+    def run_pass(self, generator, state, key):
         S, L = self.Action, self.Lattice
-        phi, n = cfg['phi'], cfg['n']
+        phi, n = state['phi'], state['n']
         change_n = S.W * uniform_nonzero_int(generator, n.shape, self.interval_n,
                                              dtype=n.dtype, device=n.device)
         dS = link_delta_s(S.kappa, calc.d(L, 0, phi), n, change_n)
         accept, prob = metropolis(_uniform(generator, n.shape, phi), dS)
-        n = n + torch.where(accept, change_n, 0)
-        form = tuple(range(1, n.dim()))
-        stats = self._tally(stats, n.shape[0], accept.sum(dim=form), L.links, prob.mean(dim=form))
-        return cfg | {'n': n}, stats, {}
+        state = state | {'n': n + torch.where(accept, change_n, 0)}
+        return (state, shard.site_sum(generator, accept, L.D + 1),
+                shard.site_sum(generator, prob, L.D + 1))
+
+    def tally(self, stats, chains, accepted, acceptance):
+        L = self.Lattice
+        return self._tally(stats, chains, accepted, L.links, acceptance / L.links)
 
 
-class ExactUpdate(Generator):
+class ExactUpdate(PassUpdate):
     r"""Coordinated update ``Δn = dz`` for an integer 0-form z on one color, so
     that ``d(Δn) = 0``: preserves dn exactly (works at W=∞)."""
 
@@ -164,31 +184,39 @@ class ExactUpdate(Generator):
         self.Lattice = action.Lattice
         self.interval_z = int(interval_z)
 
-    def step(self, generator, cfg, stats):
+    def begin(self, generator, cfg):
+        phi = cfg['phi']
+        return {'phi': phi, 'n': cfg['n'], 'dphi': calc.d(self.Lattice, 0, phi)}
+
+    def pass_keys(self):
+        return range(self.Lattice.n_colors)
+
+    def run_pass(self, generator, state, color):
         S, L = self.Action, self.Lattice
-        phi, n = cfg['phi'], cfg['n']
+        phi, n, dphi = state['phi'], state['n'], state['dphi']
         B = phi.shape[0]
-        dphi = calc.d(L, 0, phi)
-        accepted = acceptance = 0
-        for color in range(L.n_colors):
-            mask = L.mask(color, phi.device)
-            z = uniform_nonzero_int(generator, (B,) + L.dims, self.interval_z, dtype=n.dtype,
-                                    device=n.device)
-            change_z = torch.where(mask, z, 0)[:, None]
-            dS = exact_delta_s(S.kappa, L, dphi, n, change_z)
-            accept, prob = metropolis(_uniform(generator, (B,) + L.dims, phi), dS)
-            accept = accept & mask
-            n = n + calc.d(L, 0, torch.where(accept, change_z[:, 0], 0)[:, None])
-            accepted = accepted + accept.sum(dim=_spatial(L))
-            acceptance = acceptance + torch.where(mask, prob, 0).sum(dim=_spatial(L))
-        stats = self._tally(stats, B, accepted, L.sites, acceptance / L.sites)
-        return cfg | {'n': n}, stats, {}
+        mask = shard.mask(generator, L, color, phi.device)
+        z = uniform_nonzero_int(generator, (B,) + L.dims, self.interval_z, dtype=n.dtype,
+                                device=n.device)
+        change_z = torch.where(mask, z, 0)[:, None]
+        dS = exact_delta_s(S.kappa, L, dphi, n, change_z)
+        accept, prob = metropolis(_uniform(generator, (B,) + L.dims, phi), dS)
+        accept = accept & mask
+        state = state | {'n': n + calc.d(L, 0, torch.where(accept, change_z[:, 0], 0)[:, None])}
+        return (state, shard.site_sum(generator, accept, L.D),
+                shard.site_sum(generator, torch.where(mask, prob, 0), L.D))
+
+    def tally(self, stats, chains, accepted, acceptance):
+        L = self.Lattice
+        return self._tally(stats, chains, accepted, L.sites, acceptance / L.sites)
 
 
 class CohomologyUpdate(Generator):
     r"""Winding-sector update: for each direction μ, each chain proposes adding
     its own ``h_μ ∈ ±{1..interval_h}`` to ``n_μ`` on the slice ``x_μ = 0``.
-    ``d(Δn) = 0`` exactly, and the winding number w_μ changes by h_μ."""
+    ``d(Δn) = 0`` exactly, and the winding number w_μ changes by h_μ.  A step
+    is :meth:`slices`, :meth:`decide` and :meth:`apply`, so that a chain × space
+    mesh (:mod:`..parallel.space`) gathers only the slices."""
 
     name = 'CohomologyUpdate'
     fields = ('phi', 'n')
@@ -205,29 +233,55 @@ class CohomologyUpdate(Generator):
         self._slice_masks = masks
         self._on_device = {}
 
-    def step(self, generator, cfg, stats):
-        S, L = self.Action, self.Lattice
+    def _masks(self, device, slab=None):
+        """The slices' masks on ``device``, or a slab's own columns of them."""
+        if device not in self._on_device:
+            self._on_device[device] = torch.as_tensor(self._slice_masks, device=device)
+        masks = self._on_device[device]
+        return masks if slab is None else masks[..., slab.col0:slab.col0 + slab.width]
+
+    def slices(self, cfg, slab=None):
+        """The residual's component μ on the slice x_μ = 0 for each μ, (B, k)
+        contiguous, in the slice's order; of a slab's own columns (D=2), its
+        part of each slice (k = 0 where it holds none), the slices joined in
+        slab order being the whole ones."""
         phi, n = cfg['phi'], cfg['n']
-        B = phi.shape[0]
-        if phi.device not in self._on_device:
-            self._on_device[phi.device] = torch.as_tensor(self._slice_masks, device=phi.device)
-        masks = self._on_device[phi.device]
-        r = calc.d(L, 0, phi) - TWO_PI * n.to(phi.dtype)
-        accepted = acceptance = 0
-        for mu in range(L.D):
-            h = uniform_nonzero_int(generator, (B,), self.interval_h, dtype=n.dtype,
-                                    device=n.device)
-            dS = cohomology_delta_s(S.kappa, r[:, mu], masks[mu], h)
-            accept, prob = metropolis(_uniform(generator, (B,), phi), dS)
-            dh = torch.where(accept, h, 0).reshape((B,) + (1,) * L.D)
-            n = n.clone()
+        D, B = self.Lattice.D, phi.shape[0]
+        r = calc.d(self.Lattice, 0, phi) - TWO_PI * n.to(phi.dtype)
+        return [r.new_zeros((B, 0)) if slab is not None and mu == D - 1 and slab.col0 else
+                r[:, mu].select(1 + mu, 0).reshape(B, -1).contiguous() for mu in range(D)]
+
+    def decide(self, generator, slices, idt):
+        """Each μ's proposal h (dtype ``idt``), Metropolis accept and
+        probability per chain, from the whole ``slices``, drawn in order."""
+        decisions = []
+        for r_slice in slices:
+            B = r_slice.shape[0]
+            h = uniform_nonzero_int(generator, (B,), self.interval_h, dtype=idt,
+                                    device=r_slice.device)
+            dS = slice_delta_s(self.Action.kappa, r_slice, h)
+            decisions.append((h, *metropolis(_uniform(generator, (B,), r_slice), dS)))
+        return decisions
+
+    def apply(self, cfg, decisions, slab=None):
+        """``cfg`` with each accepted h_μ added to n_μ on the slice (a slab's
+        own columns of it)."""
+        n = cfg['n'].clone()
+        masks = self._masks(n.device, slab)
+        for mu, (h, accept, _) in enumerate(decisions):
+            dh = torch.where(accept, h, 0).reshape((-1,) + (1,) * self.Lattice.D)
             n[:, mu] += torch.where(masks[mu], dh, 0)
-            r = r.clone()
-            r[:, mu] += torch.where(masks[mu], -TWO_PI * dh.to(r.dtype), 0)
-            accepted = accepted + accept.to(phi.dtype)
-            acceptance = acceptance + prob
-        stats = self._tally(stats, B, accepted, L.D, acceptance / L.D)
-        return cfg | {'n': n}, stats, {}
+        return cfg | {'n': n}
+
+    def tally(self, stats, decisions):
+        D = self.Lattice.D
+        accepted = sum(accept.to(prob.dtype) for _, accept, prob in decisions)
+        acceptance = sum(prob for _, _, prob in decisions)
+        return self._tally(stats, decisions[0][1].shape[0], accepted, D, acceptance / D)
+
+    def step(self, generator, cfg, stats):
+        decisions = self.decide(generator, self.slices(cfg), cfg['n'].dtype)
+        return self.apply(cfg, decisions), self.tally(stats, decisions), {}
 
 
 def run_sweeps(phi, n, *, kappa, W, interval_phi, interval_n, sweeps, p_n, generator):
@@ -245,12 +299,14 @@ def run_sweeps(phi, n, *, kappa, W, interval_phi, interval_n, sweeps, p_n, gener
     return plain_sweeps(phi, n, kappa=kappa, W=W, sweeps=sweeps, draws=draws)
 
 
-class NeighborhoodUpdate(Generator):
+class NeighborhoodUpdate(PassUpdate):
     r"""Simultaneous site-neighborhood update: Δφ at each same-color site plus
     ``Δn ∈ W·{-interval_n..interval_n}`` on the links touching it (zero-inflated
     with probability ``p_n`` of a nonzero Δn when given): one sweep of
     :func:`..ops.sweep.neighborhood_sweeps` in D=2 (B1 on the card), of its
-    D-general PyTorch form :func:`..ops.sweep.plain_sweeps` at D >= 3.
+    D-general PyTorch form :func:`..ops.sweep.plain_sweeps` at D >= 3.  On a
+    chain × space mesh a slab runs its passes through
+    :func:`..ops.sweep.slab_pass`, B1's slab entry on the card.
 
     The stats' ``acceptance`` tallies the realized accepted fraction."""
 
@@ -271,13 +327,33 @@ class NeighborhoodUpdate(Generator):
         return self.Action.W
 
     def step(self, generator, cfg, stats):
-        L = self.Lattice
         phi, n, accepted, _ = run_sweeps(cfg['phi'], cfg['n'], kappa=self.Action.kappa,
                                          W=self._kernel_W(), interval_phi=self.interval_phi,
                                          interval_n=self.interval_n, sweeps=1, p_n=self.p_n,
                                          generator=generator)
-        stats = self._tally(stats, phi.shape[0], accepted, L.sites, accepted / L.sites)
-        return cfg | {'phi': phi, 'n': n}, stats, {}
+        return cfg | {'phi': phi, 'n': n}, self.tally(stats, phi.shape[0], accepted, 0), {}
+
+    # The passes of one sweep on a slab (the step above runs the whole torus).
+    def begin(self, generator, cfg):
+        phi, n = cfg['phi'], cfg['n']
+        state = {'phi': phi, 'n': n, 'r': slab_residual(phi, n)}
+        if phi.device.type == 'cuda':
+            state['seed'] = kernels.seed_from(generator)
+        return state
+
+    def pass_keys(self):
+        return range(self.Lattice.n_colors)
+
+    def run_pass(self, generator, state, color):
+        phi, n, r, accepted = slab_pass(
+            state['phi'], state['n'], state['r'], color, kappa=self.Action.kappa,
+            W=self._kernel_W(), interval_phi=self.interval_phi, interval_n=self.interval_n,
+            p_n=self.p_n, generator=generator, seed=state.get('seed'))
+        return state | {'phi': phi, 'n': n, 'r': r}, accepted, 0
+
+    def tally(self, stats, chains, accepted, acceptance):
+        L = self.Lattice
+        return self._tally(stats, chains, accepted, L.sites, accepted / L.sites)
 
 
 class ExactNeighborhoodUpdate(NeighborhoodUpdate):

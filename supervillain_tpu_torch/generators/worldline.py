@@ -27,7 +27,7 @@ from ..ops.worldline import (WorldlineSweepDraws, coexact_pass, inverse_w, on_co
                              residual, vortex_pass, wrapping_pass)
 from ..ops.worldline_worm import KernelWorldlineWormDraws, plain_worldline_worms, worldline_worms
 from ..device import float_dtype_of
-from .base import Generator, metropolis
+from .base import Generator, PassUpdate, metropolis
 from .combining import KeepEvery, Sequentially
 from .villain import _WormReport
 
@@ -45,8 +45,8 @@ def require_worldline_2d(action, what):
 
 
 class _LocalUpdate(Generator):
-    """A checkerboarded local update of a batch of chains: ``_passes`` runs its
-    passes and returns the fields and the accepted count per chain."""
+    """A checkerboarded local update of a batch of chains, with the draws of
+    its passes from :class:`..ops.worldline.WorldlineSweepDraws`."""
 
     fields = ('m', 'v')
 
@@ -62,65 +62,76 @@ class _LocalUpdate(Generator):
     def _proposals(self):
         return self.Lattice.cells_of_degree[2]
 
-    def step(self, generator, cfg, stats):
-        m, v = cfg['m'], cfg['v']
+    def _draws(self, generator, m, v):
         L = self.Lattice
-        draws = WorldlineSweepDraws(
+        return WorldlineSweepDraws(
             generator, B=m.shape[0], N=L.N, interval_v=self.interval_v,
             interval_t=self.interval_t, interval_w=self.interval_w,
             winf=self.Action.W == float('inf'), fdt=float_dtype_of(v), idt=m.dtype,
             device=m.device, D=L.D)
-        m, v, accepted = self._passes(m, v, residual(m, v, self.Action.W), draws)
+
+    def tally(self, stats, chains, accepted, acceptance):
         proposals = self._proposals()
-        accepted = accepted.to(draws.fdt)
-        stats = self._tally(stats, m.shape[0], accepted, proposals, accepted / proposals)
-        return cfg | {'m': m, 'v': v}, stats, {}
+        return self._tally(stats, chains, accepted, proposals, accepted / proposals)
 
 
-class VortexUpdate(_LocalUpdate):
+class _PlaquettePasses(_LocalUpdate, PassUpdate):
+    """Passes over the plaquettes of one kind (``kind``), color by color and
+    component by component, with the link residual u carried between them."""
+
+    kind = None
+
+    def begin(self, generator, cfg):
+        m, v = cfg['m'], cfg['v']
+        return {'m': m, 'v': v, 'u': residual(m, v, self.Action.W)}
+
+    def pass_keys(self):
+        return [(color, comp) for kind, color, comp in passes(self.Lattice) if kind == self.kind]
+
+    def run_pass(self, generator, state, key):
+        color, comp = key
+        m, v, u = state['m'], state['v'], state['u']
+        draws = self._draws(generator, m, v)(self.kind, color)
+        slab = shard.slab_of(generator)
+        if self.kind == 'vortex':
+            v, u, accepted = vortex_pass(v, u, color, draws, kappa=self.Action.kappa,
+                                         W=self.Action.W, comp=comp, slab=slab)
+        else:
+            m, u, accepted = coexact_pass(m, u, color, draws, kappa=self.Action.kappa,
+                                          comp=comp, slab=slab)
+        return {'m': m, 'v': v, 'u': u}, accepted.to(float_dtype_of(v)), 0
+
+
+class VortexUpdate(_PlaquettePasses):
     r"""Metropolis update of v alone, per checkerboard color and 2-form
     component: ``Δv ∈ ±{1..interval_v}`` (finite W) or
     ``U(-interval_v, +interval_v)`` (W=∞).  The stats' ``acceptance`` tallies
     the realized accepted fraction."""
 
     name = 'VortexUpdate'
+    kind = 'vortex'
 
     def __init__(self, action, interval_v=1):
         super().__init__(action, interval_v=interval_v)
 
-    def _passes(self, m, v, u, draws):
-        accepted = 0
-        for kind, color, comp in passes(self.Lattice):
-            if kind == 'vortex':
-                v, u, acc = vortex_pass(v, u, color, draws(kind, color), kappa=self.Action.kappa,
-                                        W=self.Action.W, comp=comp)
-                accepted = accepted + acc
-        return m, v, accepted
 
-
-class CoexactUpdate(_LocalUpdate):
+class CoexactUpdate(_PlaquettePasses):
     r"""Coordinated update ``Δm = δt`` with t an integer 2-form on one color and
     component, so ``δ(Δm) = δ²t = 0`` and the constraint survives."""
 
     name = 'CoexactUpdate'
+    kind = 'coexact'
 
     def __init__(self, action, interval_t=1):
         super().__init__(action, interval_t=interval_t)
-
-    def _passes(self, m, v, u, draws):
-        accepted = 0
-        for kind, color, comp in passes(self.Lattice):
-            if kind == 'coexact':
-                m, u, acc = coexact_pass(m, u, color, draws(kind, color),
-                                         kappa=self.Action.kappa, comp=comp)
-                accepted = accepted + acc
-        return m, v, accepted
 
 
 class WrappingUpdate(_LocalUpdate):
     r"""Coordinated ``Δm ∈ ±{1..interval_w}`` on entire straight cycles around
     the torus, one proposal per direction μ and perpendicular position
-    (D·N^(D−1) cycles): the only local update that changes the wrapping."""
+    (D·N^(D−1) cycles): the only local update that changes the wrapping.  Its
+    ΔS sums along whole cycles, so a chain × space mesh runs it on the
+    gathered chain (:mod:`..parallel.space`)."""
 
     name = 'WrappingUpdate'
 
@@ -131,10 +142,14 @@ class WrappingUpdate(_LocalUpdate):
         L = self.Lattice
         return L.D * L.N ** (L.D - 1)
 
-    def _passes(self, m, v, u, draws):
-        m, u, accepted = wrapping_pass(m, u, [draws('wrapping', mu) for mu in range(self.Lattice.D)],
+    def step(self, generator, cfg, stats):
+        m, v = cfg['m'], cfg['v']
+        draws = self._draws(generator, m, v)
+        m, u, accepted = wrapping_pass(m, residual(m, v, self.Action.W),
+                                       [draws('wrapping', mu) for mu in range(self.Lattice.D)],
                                        kappa=self.Action.kappa)
-        return m, v, accepted
+        stats = self.tally(stats, m.shape[0], accepted.to(float_dtype_of(v)), 0)
+        return cfg | {'m': m}, stats, {}
 
 
 def plaquette_delta_s(kappa, L, f, t, change_v, W, comp=0):
@@ -145,7 +160,7 @@ def plaquette_delta_s(kappa, L, f, t, change_v, W, comp=0):
     return calc.coface_sum(L, 1, (0.5 / kappa) * change_f * (2 * f + change_f))[:, comp]
 
 
-class PlaquetteUpdate(Generator):
+class PlaquetteUpdate(PassUpdate):
     r"""Coordinated ±1 on the 4 boundary links of each plaquette (Δm = δt) together
     with ``Δv ∈ {-1, 0, +1}`` on the plaquette itself, so δm stays 0.  Swept per
     checkerboard color and 2-form component: same-color plaquettes of one
@@ -159,36 +174,38 @@ class PlaquetteUpdate(Generator):
         self.Action = action
         self.Lattice = action.Lattice
 
-    def step(self, generator, cfg, stats):
-        S, L = self.Action, self.Lattice
+    def begin(self, generator, cfg):
         m, v = cfg['m'], cfg['v']
-        B, site = m.shape[0], (m.shape[0],) + L.dims
-        spatial = tuple(range(-L.D, 0))
-        f = residual(m, v, S.W)
-        accepted = acceptance = 0
-        for kind, color, comp in passes(L):
-            if kind != 'vortex':    # one pass per (color, component), in that order
-                continue
-            mask = L.mask(color, m.device)
-            cm = 2 * shard.randint(generator, 0, 2, site, device=m.device, dtype=m.dtype) - 1
-            cv = shard.randint(generator, -1, 2, site, device=m.device).to(v.dtype)
-            t = on_component(torch.where(mask, cm, 0), comp, L)
-            change_v = on_component(torch.where(mask, cv, 0), comp, L)
-            dS = plaquette_delta_s(S.kappa, L, f, t, change_v, S.W, comp)
-            accept, prob = metropolis(shard.rand(generator, site, dtype=f.dtype,
-                                                 device=m.device), dS)
-            accept = accept & mask
-            applied_t = on_component(torch.where(accept, cm, 0), comp, L)
-            applied_v = on_component(torch.where(accept, cv, 0), comp, L)
-            dm = calc.delta(L, 2, applied_t)
-            m = m + dm
-            v = v + applied_v
-            f = f + dm.to(f.dtype) - calc.delta(L, 2, applied_v).to(f.dtype) * inverse_w(S.W)
-            accepted = accepted + accept.sum(dim=spatial)
-            acceptance = acceptance + torch.where(mask, prob, 0).sum(dim=spatial)
-        plaquettes = L.cells_of_degree[2]
-        stats = self._tally(stats, B, accepted, plaquettes, acceptance / plaquettes)
-        return cfg | {'m': m, 'v': v}, stats, {}
+        return {'m': m, 'v': v, 'f': residual(m, v, self.Action.W)}
+
+    def pass_keys(self):
+        # one pass per (color, component), in that order
+        return [(color, comp) for kind, color, comp in passes(self.Lattice) if kind == 'vortex']
+
+    def run_pass(self, generator, state, key):
+        S, L = self.Action, self.Lattice
+        color, comp = key
+        m, v, f = state['m'], state['v'], state['f']
+        site = (m.shape[0],) + L.dims
+        mask = shard.mask(generator, L, color, m.device)
+        cm = 2 * shard.randint(generator, 0, 2, site, device=m.device, dtype=m.dtype) - 1
+        cv = shard.randint(generator, -1, 2, site, device=m.device).to(v.dtype)
+        t = on_component(torch.where(mask, cm, 0), comp, L)
+        change_v = on_component(torch.where(mask, cv, 0), comp, L)
+        dS = plaquette_delta_s(S.kappa, L, f, t, change_v, S.W, comp)
+        accept, prob = metropolis(shard.rand(generator, site, dtype=f.dtype, device=m.device), dS)
+        accept = accept & mask
+        applied_t = on_component(torch.where(accept, cm, 0), comp, L)
+        applied_v = on_component(torch.where(accept, cv, 0), comp, L)
+        dm = calc.delta(L, 2, applied_t)
+        f = f + dm.to(f.dtype) - calc.delta(L, 2, applied_v).to(f.dtype) * inverse_w(S.W)
+        state = {'m': m + dm, 'v': v + applied_v, 'f': f}
+        return (state, shard.site_sum(generator, accept, L.D),
+                shard.site_sum(generator, torch.where(mask, prob, 0), L.D))
+
+    def tally(self, stats, chains, accepted, acceptance):
+        plaquettes = self.Lattice.cells_of_degree[2]
+        return self._tally(stats, chains, accepted, plaquettes, acceptance / plaquettes)
 
 
 class ClassicWorm(_WormReport, Generator):

@@ -37,6 +37,8 @@ _SIGNATURES = {
     'sv_sweeps_resident': [_P] * 7 + [_I, _I, _I, _F, _I, _F, _I, _F, _ULL, _U, _I, _I, _I, _I,
                                       _P],
     'sv_sweeps_resident_clusters': [_I, _I, _I, _P],
+    'sv_slab_residual': [_P, _P, _P, _I, _I, _I, _P],
+    'sv_slab_color_pass': [_P] * 4 + [_I] * 7 + [_ULL, _U, _F, _I, _F, _I, _F, _P],
     'sv_worms': [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _I, _LL, _I, _ULL, _U, _P],
     'sv_worldline_sweeps': _WORLDLINE_SWEEPS,
     'sv_worldline_sweeps_winf': _WORLDLINE_SWEEPS,

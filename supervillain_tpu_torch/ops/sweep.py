@@ -223,16 +223,19 @@ class KernelSweepDraws:
         return out
 
 
-def color_pass(phi, n, r, color, draws, *, kappa, W):
+def color_pass(phi, n, r, color, draws, *, kappa, W, slab=None):
     """One checkerboard color pass on a chain batch.
 
     ``phi`` (B, 1, N, ..., N), ``n`` and the residual ``r = dφ - 2πn`` (B, D, N,
     ..., N), ``draws`` as produced by :class:`SweepDraws`.  ``W = inf`` selects
-    z-mode.  Returns the updated ``(phi, n, r)`` and the accepted count per chain."""
+    z-mode.  Returns the updated ``(phi, n, r)`` and the accepted count per chain.
+    With a :class:`.shard.Slab`, the fields (and draws) are the padded slab's
+    columns: the torus's color on them, and the accepts of its own columns."""
     L = lattice_of(phi)
     D, spatial = L.D, tuple(range(-L.D, 0))
     fdt = phi.dtype
-    mask = L.mask(color, phi.device)
+    mask = L.mask(color, phi.device) if slab is None else slab.mask(lattice(slab.N), color,
+                                                                    phi.device)
     change_phi = torch.where(mask, draws['phi'], 0)[:, None]
 
     if W == float('inf'):
@@ -267,7 +270,8 @@ def color_pass(phi, n, r, color, draws, *, kappa, W):
     phi = phi + applied_phi
     n = n + applied_n
     r = r + calc.d(L, 0, applied_phi) - TWO_PI * applied_n.to(fdt)
-    return phi, n, r, accept.sum(dim=spatial).to(fdt)
+    accepted = accept.sum(dim=spatial) if slab is None else slab.site_sum(accept, D)
+    return phi, n, r, accepted.to(fdt)
 
 
 def plain_sweeps(phi, n, *, kappa, W, sweeps, draws):
@@ -383,3 +387,103 @@ def kernel_sweeps(phi, n, plan, *, kappa, W, interval_phi, interval_n, sweeps, p
 
 #: Calls that launched the CUDA kernel (the CPU path never counts).
 neighborhood_sweeps.launches = 0
+
+
+# -- the slab entry: one color pass over a slab of a chain × space mesh ----------
+
+def slab_residual(phi, n):
+    """The residual r = dφ − 2πn of a padded slab (B, ·, N, w + 2g) of a chain
+    × space mesh: right on every column but the last, whose forward link
+    leaves the slab (the passes never read it).  B1's slab entry builds it on
+    the card (``csrc/sweep.cu`` ``init_residual_slab``), as ``sv_sweeps``
+    builds the whole torus's."""
+    if phi.device.type == 'cpu':
+        return calc.d(lattice_of(phi), 0, phi) - TWO_PI * n.to(phi.dtype)
+    B, N, padded = _require_slab(phi, n)
+    r = torch.empty(n.shape, dtype=torch.float32, device=phi.device)
+    with torch.cuda.device(phi.device):
+        code = kernels.library().sv_slab_residual(phi.data_ptr(), n.data_ptr(), r.data_ptr(), B,
+                                                  N, padded, kernels.stream_handle(phi.device))
+    kernels.check(code, 'slab_residual')
+    return r
+
+
+def _require_slab(phi, n):
+    """A Villain batch of padded slabs on the card: φ (B, 1, N, P) float32 and
+    n (B, 2, N, P) int32, contiguous.  Returns (B, N, P)."""
+    if phi.device.type != 'cuda' or n.device != phi.device:
+        raise ValueError(f'the slab kernels need phi and n on one CUDA device, got '
+                         f'{phi.device} and {n.device}')
+    if (phi.dtype, n.dtype) != (torch.float32, torch.int32):
+        raise TypeError(f'the slab kernels need float32 phi and int32 n, got {phi.dtype} '
+                        f'and {n.dtype}')
+    if phi.dim() != 4 or phi.shape[1] != 1 or tuple(n.shape) != (phi.shape[0], 2) + phi.shape[2:]:
+        raise ValueError(f'a slab is phi (B, 1, N, P) and n (B, 2, N, P), got '
+                         f'{tuple(phi.shape)} and {tuple(n.shape)}')
+    if not (phi.is_contiguous() and n.is_contiguous()):
+        raise ValueError('the slab kernels need contiguous phi and n')
+    B, _, N, padded = phi.shape
+    if 2 * B * N * padded >= 2 ** 31:
+        raise ValueError(f'{B} slabs of {N}×{padded} exceed the kernels\' 32-bit indexing')
+    return B, N, padded
+
+
+def plain_slab_pass(phi, n, r, color, draws, slab, *, kappa, W):
+    """The plain twin of :func:`slab_pass`: :func:`color_pass` on the padded
+    slab, ``draws`` being the torus's cut to its columns (:class:`SweepDraws`
+    of a :class:`.shard.SlabGenerator`, or ``slab.cut`` of each of the
+    torus's draws)."""
+    return color_pass(phi, n, r, color, draws, kappa=kappa, W=W, slab=slab)
+
+
+def slab_pass(phi, n, r, color, *, kappa, W, interval_phi, interval_n, p_n, generator,
+              seed=None):
+    """One color pass of B1's slab entry over a batch of padded slabs.
+
+    ``phi`` (B, 1, N, w + 2g), ``n`` and the residual ``r`` (B, 2, N, w + 2g)
+    of the slab of ``generator``, a :class:`.shard.SlabGenerator`, whose ghost
+    columns hold the neighbouring slabs' current values.  The pass updates the
+    sites of ``color`` of every column but the outermost two (their ghosts
+    included, which change the slab's own links as they do on the whole
+    torus); the wrap holds along the unsharded axis only.  On the card,
+    ``csrc/sweep.cu`` ``color_pass_slab``, whose Philox counters are the
+    global site t·N + x, chain ``chain0 + chain`` and ``color``, with the
+    kernel ``seed`` (required there, :func:`.kernels.seed_from` of the
+    generator at the sweep's start): the numbers the whole torus's one-sweep
+    call draws there.  On the CPU, :func:`plain_slab_pass` with the draws of
+    :class:`SweepDraws` from the generator (no seed).  Returns ``(phi, n, r,
+    accepted)``, the accepts counted over the slab's own columns."""
+    slab = shard.slab_of(generator)
+    if slab is None:
+        raise ValueError('slab_pass runs the slab of a SlabGenerator')
+    if phi.device.type == 'cpu':
+        draws = SweepDraws(generator, B=phi.shape[0], N=slab.N, interval_phi=interval_phi,
+                           interval_n=interval_n, p_n=p_n, zmode=W == float('inf'),
+                           fdt=phi.dtype, idt=n.dtype, device=phi.device)(color)
+        return plain_slab_pass(phi, n, r, color, draws, slab, kappa=kappa, W=W)
+    if phi.device.type != 'cuda':
+        raise ValueError(f'slab_pass runs on the CPU or a CUDA device, not {phi.device}')
+    if seed is None:
+        raise ValueError('slab_pass on a CUDA device needs the sweep\'s kernel seed')
+    B, N, padded = _require_slab(phi, n)
+    if padded != slab.padded or N != slab.N or N % 2:
+        raise ValueError(f'a padded slab of {slab} is (B, ·, {slab.N}, {slab.padded}) at even '
+                         f'N, got {tuple(phi.shape)}')
+    chain0 = kernels.chain_word(shard.chain0_of(generator), B)
+    if not r.is_contiguous() or r.dtype != torch.float32 or r.shape != n.shape:
+        raise ValueError('the slab kernels need a contiguous float32 r shaped as n')
+    phi, n, r = phi.clone(), n.clone(), r.clone()
+    accepted = torch.zeros(B, dtype=torch.int32, device=phi.device)
+    with torch.cuda.device(phi.device):
+        code = kernels.library().sv_slab_color_pass(
+            phi.data_ptr(), n.data_ptr(), r.data_ptr(), accepted.data_ptr(), B, N, padded,
+            slab.first, slab.ghost, slab.width, int(color), int(seed), chain0, float(kappa),
+            0 if W == float('inf') else int(W), float(interval_phi), int(interval_n),
+            -1.0 if p_n is None else float(p_n), kernels.stream_handle(phi.device))
+    kernels.check(code, 'slab_pass')
+    slab_pass.launches += 1
+    return phi, n, r, accepted.float()
+
+
+#: Calls that launched B1's slab entry (the CPU path never counts).
+slab_pass.launches = 0

@@ -87,12 +87,23 @@ def on_component(values, comp, L):
                         for k in range(comps)], dim=1)
 
 
-def vortex_pass(v, u, color, draws, *, kappa, W, comp=0):
+def _mask(L, color, device, slab):
+    """Color ``color`` of the lattice, or of the torus on a padded slab's columns."""
+    return L.mask(color, device) if slab is None else slab.mask(lattice(slab.N, L.D), color,
+                                                                device)
+
+
+def _owned_sum(accept, D, slab):
+    """Σ of ``accept`` over the sites, or over a padded slab's own columns."""
+    return accept.sum(dim=tuple(range(-D, 0))) if slab is None else slab.site_sum(accept, D)
+
+
+def vortex_pass(v, u, color, draws, *, kappa, W, comp=0, slab=None):
     """Δv on the plaquettes of ``color`` (component ``comp``): the links change
-    by −δ(Δv)/_W.  Returns ``(v, u, accepted)`` with the accepted count per chain."""
+    by −δ(Δv)/_W.  Returns ``(v, u, accepted)`` with the accepted count per chain.
+    With a :class:`.shard.Slab` the fields and draws are a padded slab's columns."""
     L = lattice_of(u)
-    spatial = tuple(range(-L.D, 0))
-    mask = L.mask(color, u.device)
+    mask = _mask(L, color, u.device, slab)
     change = on_component(torch.where(mask, draws['v'], 0), comp, L)
     du = -(calc.delta(L, 2, change).to(u.dtype) * inverse_w(W))
     dS = calc.coface_sum(L, 1, _link_terms(kappa, u, du))[:, comp]
@@ -101,22 +112,21 @@ def vortex_pass(v, u, color, draws, *, kappa, W, comp=0):
     applied = on_component(torch.where(accept, draws['v'], 0), comp, L)
     v = v + applied
     u = u - calc.delta(L, 2, applied).to(u.dtype) * inverse_w(W)
-    return v, u, accept.sum(dim=spatial)
+    return v, u, _owned_sum(accept, L.D, slab)
 
 
-def coexact_pass(m, u, color, draws, *, kappa, comp=0):
+def coexact_pass(m, u, color, draws, *, kappa, comp=0, slab=None):
     """Δm = δt with t on the plaquettes of ``color`` (component ``comp``;
     δ(Δm) = 0 keeps the constraint).  Returns ``(m, u, accepted)``."""
     L = lattice_of(u)
-    spatial = tuple(range(-L.D, 0))
-    mask = L.mask(color, u.device)
+    mask = _mask(L, color, u.device, slab)
     t = on_component(torch.where(mask, draws['t'], 0), comp, L)
     du = calc.delta(L, 2, t).to(u.dtype)
     dS = calc.coface_sum(L, 1, _link_terms(kappa, u, du))[:, comp]
     accept, _ = metropolis(draws['u'], dS)
     accept = accept & mask
     dm = calc.delta(L, 2, on_component(torch.where(accept, draws['t'], 0), comp, L))
-    return m + dm, u + dm.to(u.dtype), accept.sum(dim=spatial)
+    return m + dm, u + dm.to(u.dtype), _owned_sum(accept, L.D, slab)
 
 
 def wrapping_pass(m, u, draws, *, kappa):

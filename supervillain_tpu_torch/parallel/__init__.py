@@ -1,7 +1,8 @@
 from . import distributed
 from .fleet import Fleet, sample_fleet
 from .fused_fleet import TRUNCATION_BUDGET, check_truncation_budget, sample_fused_fleet
-from .mesh import ChainMesh, chain_mesh, fleet_sharding
+from .mesh import ChainMesh, ChainSpaceMesh, chain_mesh, chain_space_mesh, fleet_sharding
 
-__all__ = ['ChainMesh', 'Fleet', 'TRUNCATION_BUDGET', 'chain_mesh', 'check_truncation_budget',
-           'distributed', 'fleet_sharding', 'sample_fleet', 'sample_fused_fleet']
+__all__ = ['ChainMesh', 'ChainSpaceMesh', 'Fleet', 'TRUNCATION_BUDGET', 'chain_mesh',
+           'chain_space_mesh', 'check_truncation_budget', 'distributed', 'fleet_sharding',
+           'sample_fleet', 'sample_fused_fleet']

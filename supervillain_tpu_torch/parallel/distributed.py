@@ -87,14 +87,21 @@ def collective(fn, *args, **kwargs):
 collective.calls = 0
 
 
-def all_gather(obj):
-    """Every process's ``obj`` (host data, pickled) in rank order: one
-    collective, or none without a group."""
-    if world() == 1:
+def all_gather(obj, group=None):
+    """Every process's ``obj`` (host data, pickled) in rank order, over the
+    world or over ``group``: one collective, or none without a group."""
+    size = world() if group is None else _dist().get_world_size(group)
+    if size == 1:
         return [obj]
-    out = [None] * world()
-    collective(_dist().all_gather_object, out, obj)
+    out = [None] * size
+    collective(_dist().all_gather_object, out, obj, group=group)
     return out
+
+
+def new_group(ranks):
+    """A process group of ``ranks``: a collective of every process of the
+    world, each calling it for every group in the same order."""
+    return collective(_dist().new_group, ranks)
 
 
 def barrier():

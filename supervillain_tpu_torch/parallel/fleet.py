@@ -228,12 +228,19 @@ def sample_fleet(action, generator, *, chains, steps, thin=1, seed=0, mesh=None,
 
     ``mesh`` (:func:`.mesh.chain_mesh`; by default :func:`default_mesh`) cuts
     the chains into contiguous blocks, uneven where they do not divide, one
-    block a shard on its device and process.  Every shard's record is queued
+    block a shard on its device and process.  A
+    :func:`.mesh.chain_space_mesh` also cuts each chain's lattice into slabs
+    (:mod:`.space`).  Every shard's record is queued
     before any is read back; no process talks to another until the records
     are done, and then every process returns the same :class:`Fleet`, in
     global chain order, equal bit for bit to the unsharded one."""
     mesh = default_mesh(resolve_device(device)) if mesh is None else mesh
     generator = _bounded_worms(generator, action, chains, bound_worms)
+    if getattr(mesh, 'space', 1) > 1:
+        from .space import sample_space_fleet
+        return sample_space_fleet(action, generator, chains=chains, steps=steps, thin=thin,
+                                  seed=seed, mesh=mesh, start=start, keep_fields=keep_fields,
+                                  progress=progress)
     shards = [(d, block) for d, block in mesh.shards(chains) if len(block)]
     rngs = shard_generators(seed, shards, chains)
     cfgs, statss = [], []

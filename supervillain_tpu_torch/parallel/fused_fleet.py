@@ -112,6 +112,10 @@ def sample_fused_fleet(action, *, chains, steps, thin=10, seed=0, interval_phi=n
     worldline = isinstance(action, Worldline)
     if not (worldline or isinstance(action, Villain)):
         raise ValueError('sample_fused_fleet drives a Villain or a Worldline action')
+    if getattr(mesh, 'space', 1) > 1:
+        raise ValueError('sample_fused_fleet keeps each chain whole on one card, as the Pallas '
+                         'kernels keep it in one chip\'s memory: a mesh with a space axis runs '
+                         'the generic updates through sample_fleet')
     if mesh is None:
         mesh = ChainMesh([resolve_device(device)])
     elif chains % mesh.size:
