@@ -88,25 +88,53 @@ M3. the main path's published quantities: the vortex (Villain) and spin
     Spin_Spin.Worldline at N=32 over 64 configurations, timed;
 
 and for the general generator path (every eager update, the combinators, both
-Hammers and ``sample_fleet``), with the plain twins of B1, B2 and B5 made to
-raise if handed a CUDA tensor:
+Hammers and ``sample_fleet``), with the plain twins of B1, B2, B5 and K1 made
+to raise if handed a CUDA tensor:
 
 G1. ``sample_fleet`` on the card against the exact N=2 distributions, the cases
     of tests/test_exact_distribution.py (the Worldline Hammer at W=1 and, worm
     capped at 6, at W=2; the Villain ClassicWorm and ChunkedWorm(12) at W=1;
     the W=2 worm unbounded and capped at 8; the z-only ExactNeighborhoodUpdate
-    at W=∞): χ²/dof < 3.5 each, and B1, B2 and B5 launched;
+    at W=∞): χ²/dof < 3.5 each, and B1, B2, B5 and K1 launched;
 G2. ``sample_fleet(S, Hammer(S, fleet=True))``: (a) at L=64, 1024 chains, κ=0.5,
-    thin=4 (Villain W=2 on B2, Villain W=1 with the ChunkedWorm, Worldline W=2
-    on B5) against ``sample_fused_fleet`` of the same action and shape,
+    thin=4 (Villain W=2 on B2, Villain W=1 with the ChunkedWorm on K1, Worldline
+    W=2 on B5) against ``sample_fused_fleet`` of the same action and shape,
     per-chain means of the registry ActionDensity after a cut within a pull of
-    5; (b) at L=256, 512 chains, W=2, thin=4, 10 records, both actions, timed:
-    seconds per record, site-updates/s, each kernel's launches, one record's
-    device time by kind against its wall time, and the ChunkedWorm's ms per
-    step;
+    5, each worm kernel launched once a step; (b) at L=256, 512 chains, thin=4,
+    10 records, both actions at W=2 and the Villain action at W=1 (the slice's
+    path: the ChunkedWorm on K1), timed: seconds per record, site-updates/s,
+    each kernel's launches (the worm's once a step), one record's device time
+    by kind against its wall time, and K1's ms per step;
 G3. ``Ensemble.generate`` with the generic Villain Hammer on the card (N=8,
     W=2), ``every(2)`` → ``continue_from``, and, where ``h5py`` imports, the h5
     round trip of its generator tree;
+
+and for the general path's last host-driven loops, now kernels of their own
+(no Pallas kernel exists for either), after one device-memory round trip is
+measured (a thread chasing dependent loads through 256 MiB, ``csrc/probe.cu``):
+
+K1. the ChunkedWorm kernel (``csrc/worm.cu``) against its plain twin fed K1's
+    own Philox draws, T=64, κ=0.5, W=1, at L=256 with 512 chains and at N = 5,
+    32 and 255 with 256 chains: n differing on at most 1e-4 of the links and
+    the worm state or histogram on at most 1% of the chains (phase 7's bounds:
+    flips where float rounding of ΔS differs), the closes, lengths and the
+    histograms of the chains that agree within 1e-6; the shards [0, 128) and
+    [128, 512) with chain0 = 0 and 128 equal to the whole call bit for bit;
+    its ms per step (median of 7, CUDA events) beside the plain twin's, the
+    bound (n read and written, the histogram zeroed, φ at the two sites each
+    move that does not close reads) and the latency floor (T rounds of one
+    device-memory round trip);
+K2. the D-general Worldline worm kernel (``csrc/worldline_worm_general.cu``)
+    against its plain twin on the stream of ``KernelWorldlineWormDraws`` with
+    D, both capped at ODD_REPLAY_CAP: D=3 at N = 8 and 16 and D=4 at N=8, W =
+    1, 2 and ∞, κ = 0.2 and 0.3, 64 chains, worms differing on at most 1% of
+    the chains, δm = 0 bit for bit after every call and every truncated worm
+    rolled back exactly; its ms per call at D=4, N=8, κ=0.3, W=1 at the fleet
+    cap on a state 20 generic Hammer steps have moved, at 32 and 512 chains,
+    and ns per move of the longest worm, beside the bound, the latency floor
+    (the longest worm's moves at one round trip of a dependent load through a
+    buffer the size of its working set, read whole first: in the L2 cache at
+    32 chains) and (capped) the plain twin's ms;
 
 and for the user entry points, the port's scripts run in this process through
 ``runpy`` with their argv set (``supervillain_tpu_torch/examples/``), every
@@ -133,9 +161,10 @@ E6. ``self-dual-fused.py --L 64`` (W=∞, κ=1/2π): the duality pull, and each
 E7. ``winf-line.py --Ls 64 128`` at κ=1/π: η_eff against the exact 1/(2πκ);
 E8. ``end-to-end.py`` (Villain, and Worldline at W=2), ``action-comparison.py``,
     the two algorithm comparisons, ``no-vortices.py``, ``why-measure-inline.py``
-    (at an even N and E8_CONFIGURATIONS) and ``fleet-scan.py`` (also with
-    ``--mesh``, the same fleets bit for bit): each exits 0, each comparison of
-    two estimates of one quantity within 4, and B1, B2 and B5 launched;
+    (at an even N and E8_CONFIGURATIONS) and ``fleet-scan.py`` at its own
+    defaults (100 records, cut 25; also with ``--mesh``, the same fleets bit
+    for bit): each exits 0, each comparison of two estimates of one quantity
+    within 4, and B1, B2, B5 and K1 launched;
 
 and for odd N, where the torus needs four colors (B1 and B4 read each site's
 color from a table; B2 and B5 index any N):
@@ -152,9 +181,9 @@ O1. B1, B2, B4 and B5 at N = 5, 7, 11 (256 chains; B1 at W = 1, 2 and ∞, B2 at
 O2. the six eager-generator scripts of E8 at their own default (odd) N and
     O2_CONFIGURATIONS, gated as E8 is;
 
-and for general D, where no kernel exists (the TPU kernels are D=2 only) and
-every step runs PyTorch operations on the card, every kernel's count read as
-0 after each phase:
+and for general D, where no TPU kernel exists (they are D=2 only): the
+Villain path runs PyTorch operations on the card, every kernel's count read
+as 0 after D2 and D4, and the Worldline worm is K2:
 
 D1. the calculus (d, δ, the incidence sums, the Laplacian, ★, ∧, push, pull),
     the sparse functions and ``Form`` at D = 3, 4 on the card against the port
@@ -167,9 +196,12 @@ D2. ``d4-topology.py`` at the shape of each committed log (N=8, 32 chains,
     within |pull| < 4, and WindingSquared ≡ 0 and Q ≡ 0 at W=∞; and at W=∞
     (128 chains × 240 steps) ⟨ActionDensity⟩ against the exact free-field
     value (Λ − 1)/(2Λ), per-chain means within |pull| < 4;
-D3. the generic Worldline Hammer at D = 3 and 4 (N=8, κ=0.2, W=1, 32 chains
-    on the card, 8 on the CPU): δm = 0 bitwise on every kept draw, finite
-    ActionDensity, per-chain means of card and CPU within |pull| < 4;
+D3. the generic Worldline Hammer at D = 3 and 4 (N=8, 16 steps, 32 chains on
+    the card, plain twins refused): κ=0.2, W=1 at both D, also on the CPU (8
+    chains), per-chain means of card and CPU within |pull| < 4; W=2 at D=3 and
+    κ=0.3 at D=4 (worms of thousands of moves) on the card alone; δm = 0
+    bitwise on every kept draw, finite ActionDensity, and K2 launched once a
+    step of each card fleet and no other kernel;
 D4. ``benchmark/dimension.py`` at D=4, N=8, 32 to 8192 chains: site-updates/s;
 
 and for the chain mesh (``parallel/mesh.py``, ``parallel/distributed.py``),
@@ -183,8 +215,9 @@ P1. B1 (resident at N=256, table at N=255), B2, B4 (N=256 and 255) and B5 on
     chain0 = 128, under phase 7's bounds;
 P2. ``sample_fused_fleet`` with the Villain Hammer (W=1) and the Worldline
     Hammer (W=2) at the main path's width (3 records), and ``sample_fleet``
-    with the generic Villain Hammer(fleet=True) at L=64 (1024 chains, W=2),
-    each over cuda:0 alone (the unsharded reference), with mesh=None, over
+    with the generic Villain Hammer(fleet=True) at L=64 (1024 chains, W=2, and
+    W=1 with K1), each over cuda:0 alone (the unsharded reference), with
+    mesh=None, over
     ``chain_mesh()`` and over the card listed 4 times: equal columns, stats
     and final bit for bit, and each one's seconds per record;
 P3. two processes over gloo (``torch.multiprocessing``, file init) on the one
@@ -211,23 +244,25 @@ S1. B1's slab entry at N=SLAB_N (4 chains) split 2 and 4 ways: one sweep (the
 S2. ``sample_fleet`` over chain × space meshes of cuda:0 listed 2 and 4 times
     (1×2, 2×2, 1×4): the W=2 Villain Hammer(fleet=True) at N=8 (κ = 0.5, the
     shape of __graft_entry__.py's dry run, and 0.1, where n moves), the W=2
-    Worldline Hammer at N=8, and NeighborhoodUpdate at L=1024 with one chain a
+    Worldline Hammer and the W=1 Villain Hammer (its ChunkedWorm, K1, on the
+    gathered chain) at N=8, and NeighborhoodUpdate at L=1024 with one chain a
     chains-row, each against the unsharded fleet on one card: fields bit for
     bit, stats to 1e-5 relative, dn ≡ 0 (mod W) and δm = 0 on every record;
     the counts set to 0 after the references, the plain twins (and the slab
-    entry's) refused on CUDA tensors, the slab entry, B2 and B5 launched and
-    the whole torus's sweep not;
+    entry's) refused on CUDA tensors, the slab entry, B2, B5 and K1 launched
+    and the whole torus's sweep not;
 S3. ``benchmark/scaling.py``'s audits: a space-sharded Hammer step makes halo
     exchanges, and a chain mesh's records no collective;
 WC. ``benchmark/worm_cost.py`` (its main) at L=64 and 256, W=1 and 2, 256
     chains, and with ``--chunked 64``: one JSON line per (L, W), each share in
     [0, 1].
 
-The next-to-last line is a JSON object describing each kernel (its
-``max_abs_err`` from the same-draws phases, its launches on its main path, its
-time, its plain version's time and the least time the card could take for the
-same work; ``launches_by_path`` splits its launches by the path that made
-them, ``launches_by_parity`` by even and odd N, and ``at_N255`` and
+The next-to-last line is a JSON object describing each kernel, B1–B6 and K1,
+K2 (its ``max_abs_err`` from the same-draws phases, its launches on its main
+path (K1: G2b's; K2: D3's), its time, its plain version's time and the least
+time the card could take for the same work, and for K1 and K2 the latency
+floor beside it; ``launches_by_path`` splits its launches by the path that
+made them, ``launches_by_parity`` by even and odd N, and ``at_N255`` and
 ``at_N256_same_run`` give O1's times and bounds; B1's ``slab_entry`` gives
 S2's launches of the slab entry and S1's times and bounds by split); the last
 line is ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
@@ -1484,6 +1519,7 @@ def phase_published_quantities(torch, card, villain, worldline):
 PLAIN_TWINS = (('supervillain_tpu_torch.ops.sweep', 'plain_sweeps'),
                ('supervillain_tpu_torch.ops.sweep', 'plain_slab_pass'),
                ('supervillain_tpu_torch.ops.worm', 'plain_worms'),
+               ('supervillain_tpu_torch.ops.worm', 'plain_chunked_worms'),
                ('supervillain_tpu_torch.ops.worldline_worm', 'plain_worldline_worms'),
                ('supervillain_tpu_torch.ops.worldline', 'plain_worldline_sweeps'))
 
@@ -1519,9 +1555,10 @@ class PlainTwinsRefused:
 
 def general_counters():
     from supervillain_tpu_torch.ops.sweep import neighborhood_sweeps
-    from supervillain_tpu_torch.ops.worldline_worm import worldline_worms
-    from supervillain_tpu_torch.ops.worm import classic_worms
-    return {'sweep': neighborhood_sweeps, 'worm': classic_worms, 'worldline_worm': worldline_worms}
+    from supervillain_tpu_torch.ops.worldline_worm import worldline_worms, worldline_worms_general
+    from supervillain_tpu_torch.ops.worm import chunked_worms, classic_worms
+    return {'sweep': neighborhood_sweeps, 'worm': classic_worms, 'worldline_worm': worldline_worms,
+            'chunked_worm': chunked_worms, 'worldline_worm_general': worldline_worms_general}
 
 
 def worldline_distribution(W):
@@ -1637,7 +1674,8 @@ def phase_general_exact(torch):
             require(ratio < CHI2_BOUND, f'G1: {label} misses the exact distribution')
     launches = {k: f.launches for k, f in counters.items()}
     say(f'  kernel launches in G1: {launches}')
-    require(all(v > 0 for v in launches.values()), f'G1: a kernel never launched: {launches}')
+    require(all(launches[k] > 0 for k in ('sweep', 'worm', 'worldline_worm', 'chunked_worm')),
+            f'G1: a kernel never launched: {launches}')
     return launches
 
 
@@ -1712,8 +1750,8 @@ def phase_general_full_width(torch, card):
         for label, S, module, kernel, steps, cut, fused_steps, fused_cut in (
                 ('Villain W=2 (ClassicWorm on B2, capped at 8·sites)',
                  sv.Villain(sv.Lattice2D(N), kappa, W=2), gv, 'worm', 300, 250, 100, 50),
-                ('Villain W=1 (ChunkedWorm, 64 micro-moves a step)',
-                 sv.Villain(sv.Lattice2D(N), kappa, W=1), gv, None, 150, 100, 100, 50),
+                ('Villain W=1 (ChunkedWorm on K1, 64 micro-moves a step)',
+                 sv.Villain(sv.Lattice2D(N), kappa, W=1), gv, 'chunked_worm', 150, 100, 100, 50),
                 ('Worldline W=2 (ClassicWorm on B5, capped at 8·sites)',
                  sv.Worldline(sv.Lattice2D(N), kappa, W=2), gw, 'worldline_worm', 50, 25,
                  50, 25)):
@@ -1745,19 +1783,21 @@ def phase_general_full_width(torch, card):
                 f'seconds of a record), launches {launches}; worms {worm["sweeps"]!r}, mean length '
                 f'{worm["accepted"] / max(worm["sweeps"], 1.0)!r}')
             require(z < PULL_BOUND, f'G2: {label} disagrees with the fused fleet ({z:.2f} σ)')
-            require(kernel is None or launches[kernel] == steps * thin,
+            require(launches[kernel] == steps * thin,
                     f'G2: the worm kernel did not launch once a step for {label}: {launches}')
-            if kernel is None:
-                say(f'  [{card}] ChunkedWorm(64) step over {B} chains at L={N}: '
+            if kernel == 'chunked_worm':
+                say(f'  [{card}] ChunkedWorm(64) step (K1) over {B} chains at L={N}: '
                     f'{chunked_worm_ms(torch, S, B, 64)!r} ms (CUDA events, mean of 5)')
             del fleet, fused
 
         N, B, steps = 256, 512, 10
         say(f'== phase G2b: width and timing of the general Hammer fleets (L={N}, {B} chains, '
-            f'κ={kappa}, W=2, thin={thin}, {steps} records, keep_fields=False; not thermalized, '
-            f'no agreement held)')
+            f'κ={kappa}, W=2 and the Villain W=1 (ChunkedWorm on K1, the slice\'s path), '
+            f'thin={thin}, {steps} records, keep_fields=False; not thermalized, no agreement '
+            f'held)')
         for label, S, module in (('Villain', sv.Villain(sv.Lattice2D(N), kappa, W=2), gv),
-                                 ('Worldline', sv.Worldline(sv.Lattice2D(N), kappa, W=2), gw)):
+                                 ('Worldline', sv.Worldline(sv.Lattice2D(N), kappa, W=2), gw),
+                                 ('Villain W=1', sv.Villain(sv.Lattice2D(N), kappa, W=1), gv)):
             G = module.Hammer(S, fleet=True)
             for f in counters.values():
                 f.launches = 0
@@ -1766,23 +1806,32 @@ def phase_general_full_width(torch, card):
             launches = {k: f.launches for k, f in counters.items()}
             for k, v in launches.items():
                 general[k] += v
-            histogram = 'Vortex_Vortex' if label == 'Villain' else 'Spin_Spin'
+            villain = label.startswith('Villain')
+            histogram = 'Vortex_Vortex' if villain else 'Spin_Spin'
             for k in (histogram, 'Worm_Length'):
                 col = fleet.columns[k]
                 require(col.shape[:2] == (steps, B) and np.isfinite(col).all(),
                         f'G2: bad column {k}')
             worm = fleet.stats['ClassicWorm']
+            if S.W == 1:
+                worms = (f'{worm["sweeps"]!r} worms closed, {worm["accepted"]!r} micro-moves '
+                         f'tallied')
+                kernel = 'chunked_worm'
+            else:
+                worms = (f'{worm["sweeps"] - worm["acceptance"]!r} of {worm["sweeps"]!r} worms '
+                         f'truncated at {8 * N * N} moves, mean length '
+                         f'{worm["accepted"] / worm["sweeps"]!r}')
+                kernel = 'worm' if villain else 'worldline_worm'
             say(f'  [{card}] {label} Hammer(fleet=True): {seconds / steps!r} s per record, '
                 f'{B * N * N * thin / (seconds / steps)!r} site-updates/s; launches {launches}; '
-                f'{worm["sweeps"] - worm["acceptance"]!r} of {worm["sweeps"]!r} worms truncated at '
-                f'{8 * N * N} moves, mean length {worm["accepted"] / worm["sweeps"]!r}')
-            require(launches['worm' if label == 'Villain' else 'worldline_worm'] == steps * thin,
+                f'{worms}')
+            require(launches[kernel] == steps * thin,
                     f'G2: the {label} worm kernel did not launch once a step: {launches}')
             record_profile(torch, card, f'{label} Hammer(fleet=True)', G, fleet, thin)
             del fleet
-        say(f'  [{card}] ChunkedWorm(64) step over {B} chains at L={N} (W=1): '
+        say(f'  [{card}] ChunkedWorm(64) step (K1) over {B} chains at L={N} (W=1): '
             f'{chunked_worm_ms(torch, sv.Villain(sv.Lattice2D(N), kappa, W=1), B, 64)!r} ms '
-            f'(CUDA events, mean of 5)')
+            f'(CUDA events, mean of 5; the parent\'s PyTorch loop 34–60 ms, PERF.md §5)')
     return general
 
 
@@ -1822,6 +1871,266 @@ def phase_general_host_path(torch):
     say(f'  h5 round trip: the spec rebuilds ({spec["cls"]} of {spec["generator"]["cls"]})')
 
 
+# -- K1 and K2: the general path's last host-driven loops, on the card -------------
+
+#: K1's shapes (N, chains) and micro-moves a call: the slice's full width
+#: first, then odd, small and large sides.
+K1_SHAPES = ((256, 512), (5, 256), (32, 256), (255, 256))
+K1_MOVES = 64
+#: The shards of K1's chain0 check (as P1's).
+K1_CUT = 128
+#: |Δ| allowed in a ChunkedWorm call's closes and tallies (per chain, and the
+#: histogram of every chain whose fields and worm state agree): none of them
+#: depends on a Metropolis decision but through the head's path.
+K1_TALLY_ATOL = 1e-6
+#: K2's sides (D, N), the W and κ of its same-draws checks, its chains there,
+#: and the chains of its timing at the main path's D=4.
+K2_SHAPES = ((3, 8), (3, 16), (4, 8))
+K2_WS = (1, 2, float('inf'))
+K2_KAPPAS = (0.2, 0.3)
+K2_CHAINS = 64
+K2_TIMED_CHAINS = (32, 512)
+
+
+def memory_round_trip_ns(torch, nbytes=256 * 2 ** 20, steps=20000, cached=False):
+    """One round trip of a dependent load in ns: one thread follows ``steps``
+    dependent loads through a random cycle over ``nbytes``, ``csrc/probe.cu``;
+    CUDA events, the median of 3 after a warm-up.  Cold (the default, 256 MiB,
+    five times the L2 cache) each call starts on its own stretch of the cycle:
+    one device-memory round trip.  ``cached``: the buffer is read whole first,
+    so that a buffer the size of a kernel's working set sits in the L2 cache
+    as far as it fits, as the kernel's does."""
+    from supervillain_tpu_torch.ops import kernels
+    M = nbytes // 4
+    g = torch.Generator(device='cuda').manual_seed(0)
+    perm = torch.randperm(M, generator=g, device='cuda')
+    chain = torch.empty(M, dtype=torch.int32, device='cuda')
+    chain[perm] = perm.roll(-1).int()
+    out = torch.empty(1, dtype=torch.int32, device='cuda')
+    lib, stream = kernels.library(), kernels.stream_handle(torch.device('cuda'))
+
+    # Cold, each call starts on its own stretch of the cycle, so that no load
+    # finds its line in the L2 cache from an earlier call.
+    starts = [int(perm[part * (M // 4)]) for part in range(4)]
+
+    def chase(k, start):
+        kernels.check(lib.sv_pointer_chase(chain.data_ptr(), k, start, out.data_ptr(), stream),
+                      'sv_pointer_chase')
+
+    chase(steps // 10, starts[0])
+    times = []
+    for start in starts[1:]:
+        if cached:
+            chain.sum()
+        times.append(timed_call(torch, lambda: chase(steps, start))[0])
+    del chain, perm
+    return float(np.median(times)) * 1e6 / steps
+
+
+def chunked_state(torch, N, B, seed):
+    """A W=1 Villain batch for K1: uniform φ, n in {−1, 0, 1} (every n is valid
+    at W=1) and a random open worm a chain."""
+    host = torch.Generator().manual_seed(seed)
+    phi = ((torch.rand((B, 1, N, N), generator=host) - 0.5) * 2 * math.pi).cuda()
+    n = torch.randint(-1, 2, (B, 2, N, N), generator=host, dtype=torch.int32).cuda()
+    worm = torch.cat([torch.randint(0, N, (B, 4), generator=host),
+                      2 * torch.randint(0, 2, (B, 1), generator=host) - 1], dim=1)
+    return phi, n, worm.int().cuda()
+
+
+def compare_chunked(name, got, want):
+    """K1's outputs (n, worm, hist, length, closes) against its plain twin's."""
+    B = got[0].shape[0]
+    links = float((got[0] != want[0]).double().mean())
+    fields = differ(got[0], want[0]) | differ(got[1], want[1])
+    parted = fields | differ(got[2], want[2])
+    frac = float(parted.double().mean())
+    tallies = max(float((got[k] - want[k]).abs().max()) for k in (3, 4))
+    kept = ~fields
+    hist = float((got[2][kept] - want[2][kept]).abs().max()) if bool(kept.any()) else 0.0
+    say(f'  {name}: n differs at {links!r} of the links (bound {SAME_DRAWS_SITES}), the worm '
+        f'state or histogram on {frac!r} of the {B} chains (bound {SAME_DRAWS_CHAINS}); max '
+        f'|Δ| of the closes and lengths {tallies!r}, of the histograms of the chains that agree '
+        f'{hist!r} (bound {K1_TALLY_ATOL})')
+    require(links <= SAME_DRAWS_SITES and frac <= SAME_DRAWS_CHAINS,
+            f'{name}: kernel and plain twin part on the same draws')
+    require(tallies <= K1_TALLY_ATOL and hist <= K1_TALLY_ATOL,
+            f'{name}: kernel and plain twin tally differently')
+    return tallies
+
+
+def phase_chunked_worm(torch, card, round_trip_ns):
+    """K1: the ChunkedWorm kernel against its plain twin on K1's Philox draws
+    at K1_SHAPES; its shards with chain0 = 0 and K1_CUT against the whole call
+    bit for bit; its time per step at L=256, 512 chains, beside the plain
+    twin's and the bound."""
+    from supervillain_tpu_torch.ops import kernels
+    from supervillain_tpu_torch.ops.worm import (KernelChunkedWormDraws, chunked_worms,
+                                                 plain_chunked_worms)
+
+    T, kappa = K1_MOVES, 0.5
+    say(f'== phase K1: the ChunkedWorm kernel (csrc/worm.cu) against its plain twin on the same '
+        f'Philox draws (T={T}, κ={kappa}, W=1; ' +
+        ', '.join(f'N={N} {B} chains' for N, B in K1_SHAPES) + '), chain0 shards, timing')
+    t0 = time.perf_counter()
+    err, out = 0.0, {}
+    for N, B in K1_SHAPES:
+        phi, n, worm = chunked_state(torch, N, B, 70 + N)
+        seed = 300 + N
+
+        def call(lo=0, hi=B):
+            return chunked_worms(phi[lo:hi], n[lo:hi], worm[lo:hi], kappa=kappa, moves=T,
+                                 generator=torch.Generator().manual_seed(seed), chain0=lo)
+
+        def plain():
+            draws = KernelChunkedWormDraws(kernels.seed_from(torch.Generator().manual_seed(seed)),
+                                           B=B, N=N, device='cuda')
+            return plain_chunked_worms(phi, n, worm, kappa=kappa, moves=T, draws=draws)
+
+        got = call()
+        err = max(err, compare_chunked(f'K1 N={N}, {B} chains', got, plain()))
+        if (N, B) != K1_SHAPES[0]:
+            continue
+        parts = [call(0, K1_CUT), call(K1_CUT, B)]
+        equal = all(torch.equal(a[:K1_CUT], p) and torch.equal(a[K1_CUT:], q)
+                    for a, p, q in zip(got, *parts))
+        say(f'  K1 shards [0, {K1_CUT}) and [{K1_CUT}, {B}) with chain0 = 0 and {K1_CUT}: '
+            f'equal to the whole call bit for bit: {equal}')
+        require(equal, 'K1: a shard differs from its rows of the whole call')
+        times, last = call_spread(torch, call, 7)
+        plain_times, _ = call_spread(torch, plain, 3)
+        closes = float(last[4].double().sum())
+        # n read and written whole (the wrapper's copy), the histogram zeroed,
+        # the worm state in and out, the tallies; φ only where a move that
+        # does not close reads it (two sites).
+        nbytes = (2 * 8 * B * N * N + 4 * B * N * N + 2 * 20 * B + 8 * B
+                  + 8 * (B * T - int(closes)))
+        # A micro-move is a worm move, and a close draws once more (its restart).
+        bms, by = bound(nbytes, OPS_WORM_MOVE * B * T + PHILOX_OPS * closes)
+        floor = T * round_trip_ns * 1e-6
+        ms = float(np.median(times))
+        say(f'  [{card}] K1 at L={N}, {B} chains, T={T}: {spread(times)} ms per step '
+            f'(min / median / max of 7, CUDA events; the parent\'s PyTorch loop 34–60 ms, '
+            f'PERF.md §5), plain twin {spread(plain_times)} ms (3 calls); bound {bms!r} ms '
+            f'({by}: {nbytes} bytes: n read and written, the histogram zeroed, φ at '
+            f'{B * T - int(closes)} moves that read it; {closes!r} closes), latency floor {floor!r} ms ({T} '
+            f'dependent rounds of one {round_trip_ns!r} ns round trip); {ms / max(bms, floor)!r}× '
+            f'the larger')
+        out = {'ms': ms, 'plain_ms': float(np.median(plain_times)), 'bound': (bms, by),
+               'latency_floor_ms': floor}
+    torch.cuda.synchronize()
+    say(f'  K1: {time.perf_counter() - t0!r} s (card: {card}); largest |Δ| {err!r}')
+    return err, out
+
+
+def worldline_general_state(torch, D, N, B, W, seed):
+    """A closed Worldline batch at dimension D for K2: m = 0 and v random
+    (integers in {−1, 0, 1}, or uniform at W=∞)."""
+    host = torch.Generator().manual_seed(seed)
+    C = D * (D - 1) // 2
+    shape = (B, C) + (N,) * D
+    m = torch.zeros((B, D) + (N,) * D, dtype=torch.int32, device='cuda')
+    if W == float('inf'):
+        v = (torch.rand(shape, generator=host) - 0.5).cuda()
+    else:
+        v = torch.randint(-1, 2, shape, generator=host, dtype=torch.int32).cuda()
+    return m, v
+
+
+def phase_general_worldline_worm(torch, card):
+    """K2: the D-general Worldline worm kernel against its plain twin on the
+    draws of KernelWorldlineWormDraws with D (both capped at ODD_REPLAY_CAP):
+    δm = 0 bitwise after every call and every truncated worm rolled back
+    exactly; then its time per call at D=4, N=8, κ=0.3, W=1 at the fleet cap
+    on a state the generic Hammer has moved, at 32 and 512 chains, beside its
+    latency floor: the longest worm's moves at one round trip of a dependent
+    load through a buffer the size of its working set (m, δv/W and the
+    histogram), read whole first, so that it sits in the L2 cache as far as
+    it fits."""
+    import supervillain_tpu_torch as sv
+    from supervillain_tpu_torch.generators import worldline as gw
+    from supervillain_tpu_torch.ops import calculus, kernels
+    from supervillain_tpu_torch.ops.worldline_worm import (KernelWorldlineWormDraws,
+                                                           plain_worldline_worms,
+                                                           worldline_worms_general)
+
+    say(f'== phase K2: the Worldline worm at D ≥ 3 (csrc/worldline_worm_general.cu) against its '
+        f'plain twin on the same draws (' + ', '.join(f'D={D} N={N}' for D, N in K2_SHAPES) +
+        f'; W = 1, 2, ∞; κ = {", ".join(map(str, K2_KAPPAS))}; {K2_CHAINS} chains, capped at '
+        f'{ODD_REPLAY_CAP}), and its time at D=4')
+    t0 = time.perf_counter()
+    err = 0.0
+    for D, N in K2_SHAPES:
+        L = sv.Lattice(D, N)
+        for W in K2_WS:
+            for kappa in K2_KAPPAS:
+                m, v = worldline_general_state(torch, D, N, K2_CHAINS, W, 10 * D + N)
+                seed = 400 + 10 * D + N
+                common = dict(kappa=kappa, W=W, worms=1, max_worm_moves=ODD_REPLAY_CAP)
+                got = worldline_worms_general(m, v, generator=torch.Generator().manual_seed(seed),
+                                              **common)
+                want = plain_worldline_worms(m, v, draws=KernelWorldlineWormDraws(
+                    kernels.seed_from(torch.Generator().manual_seed(seed)), B=K2_CHAINS, N=N,
+                    device='cuda', D=D), **common)
+                label = f'K2 D={D} N={N} W={W} κ={kappa}'
+                err = max(err, compare_worms(label, got, want))
+                require(bool((calculus.delta(L, 1, got[0]) == 0).all()), f'{label}: δm ≠ 0')
+                rolled = got[3].bool()
+                require(torch.equal(got[0][rolled], m[rolled]),
+                        f'{label}: a truncated worm was not rolled back exactly')
+                say(f'    {int(rolled.sum())} of {K2_CHAINS} worms truncated and rolled back '
+                    f'exactly; longest {float(got[2].max())!r} moves')
+
+    # Time at the main path's D=4 (D3's κ=0.3 fleet), on a state moved by 20
+    # steps of the generic Hammer, at the fleet cap.
+    S = sv.Worldline(sv.Lattice(4, 8), 0.3, W=1)
+    cap = 8 * S.Lattice.sites
+    fleet = sv.sample_fleet(S, gw.Hammer(S, fleet=True), chains=max(K2_TIMED_CHAINS), steps=1,
+                            thin=20, seed=5, keep_fields=True)
+    m_all = torch.as_tensor(fleet.final['m'], device='cuda')
+    v_all = torch.as_tensor(fleet.final['v'], device='cuda')
+    host = torch.Generator().manual_seed(6)
+    out = {}
+    for B in K2_TIMED_CHAINS:
+        m, v = m_all[:B].contiguous(), v_all[:B].contiguous()
+        common = dict(kappa=S.kappa, W=S.W, worms=1)
+        worldline_worms_general(m, v, max_worm_moves=cap, generator=host, **common)
+        calls = [timed_call(torch, lambda: worldline_worms_general(
+            m, v, max_worm_moves=cap, generator=host, **common)) for _ in range(3)]
+        ms = float(np.mean([t for t, _ in calls]))
+        longest = float(np.mean([float((o[2] + 1 - o[3]).max()) for _, o in calls]))
+        moves = float(np.mean([worm_moves(o[2], o[3], 1) for _, o in calls]))
+        C, V = 6, S.Lattice.sites
+        nbytes = 8 * B * 4 * V + 4 * B * C * V + 4 * B * V + 8 * B
+        bms, by = bound(nbytes, OPS_WORM_MOVE * moves)
+        working_set = B * V * (4 * 4 + 4 * 4 + 4)
+        round_trip_ns = memory_round_trip_ns(torch, working_set, cached=True)
+        floor = longest * round_trip_ns * 1e-6
+        say(f'  [{card}] K2 at D=4, N=8, κ=0.3, W=1, {B} chains, cap {cap}: {ms!r} ms per call '
+            f'(mean of 3, CUDA events), {ms * 1e6 / longest!r} ns per move of the longest worm '
+            f'({longest!r} moves), {moves / ms * 1e3!r} moves/s; bound {bms!r} ms ({by}), '
+            f'latency floor {floor!r} ms (the longest worm\'s moves at one {round_trip_ns!r} ns '
+            f'round trip through a warmed {working_set} bytes, its working set); '
+            f'{ms / max(bms, floor)!r}× the larger')
+        out[B] = {'ms': ms, 'ns_per_move': ms * 1e6 / longest, 'bound': (bms, by),
+                  'latency_floor_ms': floor, 'round_trip_ns': round_trip_ns,
+                  'working_set_bytes': working_set}
+    B = K2_TIMED_CHAINS[0]
+    m, v = m_all[:B].contiguous(), v_all[:B].contiguous()
+    common = dict(kappa=S.kappa, W=S.W, worms=1, max_worm_moves=ODD_REPLAY_CAP)
+    seed = kernels.seed_from(torch.Generator().manual_seed(7))
+    capped_ms, _ = timed_call(torch, lambda: worldline_worms_general(
+        m, v, generator=torch.Generator().manual_seed(7), **common))
+    plain_ms, _ = timed_call(torch, lambda: plain_worldline_worms(m, v, draws=KernelWorldlineWormDraws(
+        seed, B=B, N=8, device='cuda', D=4), **common))
+    say(f'  [{card}] with worms capped at {ODD_REPLAY_CAP} moves ({B} chains): K2 '
+        f'{capped_ms!r} ms, plain twin {plain_ms!r} ms')
+    del fleet, m_all, v_all
+    torch.cuda.synchronize()
+    say(f'  K2: {time.perf_counter() - t0!r} s (card: {card}); largest |Δ Worm_Length| {err!r}')
+    return err, out, (capped_ms, plain_ms)
+
+
 # -- the ported scripts: the CLI tier and the examples, against the JAX logs ----
 
 #: Where the port's example scripts live, from the repo root.
@@ -1835,13 +2144,11 @@ SCRIPT_PULL_BOUND = 4.0
 #: κ_c (0.6 and 0.65 at W=1, 0.14 and 0.16 at W=2) are still relaxing from the
 #: cold start (PERF.md §7).
 SCAN_THERM = 8 * 64 ** 2
-#: E8's chain length (configurations) for the eager-generator scripts, and
-#: fleet-scan.py's records and cut.
 #: E8's depth: the eager scripts at an even N, with fewer configurations than
 #: O2 runs them with at their odd defaults (the host-bound eager steps are most
-#: of the run's time), and fleet-scan.py's records and cut.
+#: of the run's time).  fleet-scan.py runs at its own defaults (100 records,
+#: cut 25), since its ChunkedWorm is one launch of K1 a step.
 E8_CONFIGURATIONS = 500
-E8_FLEET_STEPS, E8_FLEET_CUT = 20, 5
 O2_CONFIGURATIONS = 1000
 
 # An Uncertain as the JAX package prints it: '+7.1357(23) × 10^-1' (error in
@@ -2100,11 +2407,12 @@ def phase_small_scripts(torch, card):
             ('worldline-algorithm-comparison.py', ['--N', 6, '--configurations', C]),
             ('no-vortices.py', ['--N', 12, '--configurations', C]),
             ('why-measure-inline.py', ['--N', 8, '--configurations', C]),
-            ('fleet-scan.py', ['--steps', E8_FLEET_STEPS, '--cut', E8_FLEET_CUT]),
-            ('fleet-scan.py', ['--steps', E8_FLEET_STEPS, '--cut', E8_FLEET_CUT, '--mesh'])]
+            ('fleet-scan.py', []),
+            ('fleet-scan.py', ['--mesh'])]
     say(f'== phase E8: the eager-generator scripts ({C} configurations, even N) and '
-        f'fleet-scan.py ({E8_FLEET_STEPS} records, cut {E8_FLEET_CUT}), and with --mesh')
-    results, launches = script_phase(torch, card, 'E8', runs, ('sweep', 'worm', 'worldline_worm'))
+        f'fleet-scan.py at its defaults (100 records, cut 25), and with --mesh')
+    results, launches = script_phase(torch, card, 'E8', runs,
+                                     ('sweep', 'worm', 'worldline_worm', 'chunked_worm'))
     plain, meshed = results[-2]['results'], results[-1]['results']
     for kappa in plain:
         require_same_fleets(f'E8 fleet-scan.py κ={kappa}', plain[kappa][0], meshed[kappa][0])
@@ -2387,8 +2695,8 @@ def phase_odd_scripts(torch, card):
 
 def no_kernel_launched(label, counters):
     launches = {k: f.launches for k, f in counters.items()}
-    say(f'  {label}: kernel launches {launches} (none exists at D ≥ 3)')
-    require(not any(launches.values()), f'{label}: a D=2 kernel launched at D ≥ 3: {launches}')
+    say(f'  {label}: kernel launches {launches} (the Villain path at D ≥ 3 has no kernel)')
+    require(not any(launches.values()), f'{label}: a kernel launched: {launches}')
 
 
 def phase_calculus_general(torch):
@@ -2551,46 +2859,74 @@ def phase_d4_topology(torch, card):
     say(f'  D2: {time.perf_counter() - t0!r} s (card: {card})')
 
 
+#: D3's fleets: (D, κ, W, whether the CPU runs the same fleet beside the
+#: card's).  At κ=0.2, W=1 a worm is short and the CPU's host loop affordable;
+#: at W=2 (D=3) and κ=0.3 (D=4) a worm is thousands of moves, which only K2
+#: makes affordable, so those run on the card alone.
+D3_FLEETS = ((3, 0.2, 1, True), (4, 0.2, 1, True), (3, 0.2, 2, False), (4, 0.3, 1, False))
+D3_STEPS = 16
+
+
 def phase_worldline_general(torch, card):
-    """D3: the generic Worldline Hammer at D = 3 and 4 (N=8, κ=0.2, W=1, where
-    its worm is short: at W=2, or κ=0.3 at D=4, a worm is thousands of moves,
-    each a host round trip at D ≥ 3) on the card: δm = 0 bit for bit on every kept
-    draw, finite ActionDensity, held in distribution against the port's same
-    fleet on the CPU (per-chain means, |pull| < 4)."""
+    """D3: the generic Worldline Hammer at D = 3 and 4 (N=8) on the card with
+    the plain twins refused, K2 launched once a step of each card fleet and
+    every other kernel never: δm = 0 bit for bit on every kept draw, finite
+    ActionDensity, and, at κ=0.2 and W=1, held in distribution against the
+    port's same fleet on the CPU (per-chain means, |pull| < 4); W=2 at D=3 and
+    κ=0.3 at D=4 on the card alone."""
     import supervillain_tpu_torch as sv
     from supervillain_tpu_torch.generators import worldline as gw
     from supervillain_tpu_torch.ops import calculus
 
-    say('== phase D3: the Worldline Hammer at D = 3, 4 (N=8, κ=0.2, W=1), card against CPU')
+    say(f'== phase D3: the Worldline Hammer at D = 3, 4 (N=8; κ=0.2, W=1 card against CPU; W=2 '
+        f'at D=3 and κ=0.3 at D=4 on the card), {D3_STEPS} steps, K2 once a step')
     counters = script_counters()
-    for f in counters.values():
-        f.launches = 0
+    total = {k: 0 for k in counters}
     t0 = time.perf_counter()
     pulls = {}
-    for D in (3, 4):
-        S = sv.Worldline(sv.Lattice(D, 8), 0.2, W=1)
+    for D, kappa, W, on_cpu in D3_FLEETS:
+        S = sv.Worldline(sv.Lattice(D, 8), kappa, W=W)
+        cap = 8 * S.Lattice.sites
         means = {}
-        for device, chains in (('cuda', 32), ('cpu', 8)):
+        for device, chains in (('cuda', 32), ('cpu', 8))[:2 if on_cpu else 1]:
+            for f in counters.values():
+                f.launches = 0
             t1 = time.perf_counter()
-            fleet = sv.sample_fleet(S, gw.Hammer(S, fleet=True), chains=chains, steps=16,
-                                    thin=1, seed=D, device=device)
+            with PlainTwinsRefused():
+                fleet = sv.sample_fleet(S, gw.Hammer(S, fleet=True), chains=chains,
+                                        steps=D3_STEPS, thin=1, seed=D, device=device)
             seconds = time.perf_counter() - t1
+            launches = {k: f.launches for k, f in counters.items()}
+            label = f'D={D} κ={kappa} W={W}'
+            if device == 'cuda':
+                for k, v in launches.items():
+                    total[k] += v
+                require(launches['worldline_worm_general'] == D3_STEPS
+                        and not any(v for k, v in launches.items()
+                                    if k != 'worldline_worm_general'),
+                        f'D3 {label}: K2 did not launch once a step, or a D=2 kernel '
+                        f'launched: {launches}')
             m = fleet.columns['m']
             dm = calculus.delta(S.Lattice, 1, torch.as_tensor(m.reshape((-1,) + m.shape[2:])))
-            require(bool((dm == 0).all()), f'D3: δm ≠ 0 at D={D} on the {device}')
+            require(bool((dm == 0).all()), f'D3: δm ≠ 0 at {label} on the {device}')
             e = fleet.pooled_ensemble(4)
             a = np.asarray(e.ActionDensity)
-            require(np.isfinite(a).all(), f'D3: non-finite ActionDensity at D={D}')
+            require(np.isfinite(a).all(), f'D3: non-finite ActionDensity at {label}')
             means[device] = a.reshape(-1, chains).mean(axis=0)
-            say(f'  [{card if device == "cuda" else "cpu"}] D={D}, {chains} chains × 16 steps: '
-                f'{seconds!r} s, ActionDensity {means[device].mean()!r} ± '
-                f'{means[device].std(ddof=1) / math.sqrt(chains)!r}')
-        c, h = means['cuda'], means['cpu']
-        pulls[f'D={D} ActionDensity card − CPU'] = signed_pull(
-            (c.mean(), c.std(ddof=1) / math.sqrt(len(c))), (h.mean(), h.std(ddof=1) / math.sqrt(len(h))))
-    no_kernel_launched('D3', counters)
+            worm = fleet.stats['ClassicWorm']
+            say(f'  [{card if device == "cuda" else "cpu"}] {label}, {chains} chains × '
+                f'{D3_STEPS} steps: {seconds!r} s, ActionDensity {means[device].mean()!r} ± '
+                f'{means[device].std(ddof=1) / math.sqrt(chains)!r}; worms: mean length '
+                f'{worm["accepted"] / worm["sweeps"]!r}, {worm["sweeps"] - worm["acceptance"]!r} '
+                f'of {worm["sweeps"]!r} truncated at {cap} moves; launches {launches}')
+        if on_cpu:
+            c, h = means['cuda'], means['cpu']
+            pulls[f'D={D} κ={kappa} W={W} ActionDensity card − CPU'] = signed_pull(
+                (c.mean(), c.std(ddof=1) / math.sqrt(len(c))),
+                (h.mean(), h.std(ddof=1) / math.sqrt(len(h))))
     gate_pulls('D3', pulls)
-    say(f'  D3: {time.perf_counter() - t0!r} s')
+    say(f'  D3: {time.perf_counter() - t0!r} s; launches on the card {total}')
+    return total
 
 
 def phase_dimension(torch, card):
@@ -2799,13 +3135,15 @@ def phase_mesh_fleets(torch, card):
     for name in MESH_FLEETS:
         digests[name] = fleet_digest(over_meshes(name, lambda mesh: mesh_fused_fleet(name, mesh),
                                                  MESH_RECORDS))
-    S = sv.Villain(sv.Lattice2D(64), 0.5, W=2)
-    over_meshes('sample_fleet Hammer(fleet=True)', lambda mesh: sv.sample_fleet(
-        S, gv.Hammer(S, fleet=True), chains=1024, steps=MESH_RECORDS, thin=4, seed=17,
-        mesh=mesh), MESH_RECORDS)
+    for W in (2, 1):
+        S = sv.Villain(sv.Lattice2D(64), 0.5, W=W)
+        over_meshes(f'sample_fleet Hammer(fleet=True) W={W}', lambda mesh: sv.sample_fleet(
+            S, gv.Hammer(S, fleet=True), chains=1024, steps=MESH_RECORDS, thin=4, seed=17,
+            mesh=mesh), MESH_RECORDS)
     launches = {k: f.launches for k, f in counters.items()}
     say(f'  P2: {time.perf_counter() - t0!r} s (card: {card}); launches {launches}')
-    require(all(v > 0 for v in launches.values()), f'P2: a kernel never launched: {launches}')
+    require(all(v > 0 for k, v in launches.items() if k != 'worldline_worm_general'),
+            f'P2: a kernel never launched: {launches}')
     return digests, launches
 
 
@@ -2901,7 +3239,8 @@ SLAB_N, SLAB_CHAINS, SLAB_SPLITS = 1024, 4, (2, 4)
 #: chains a chains-row, records.
 SPACE_FLEETS = {'Villain Hammer(fleet=True) W=2 κ=0.5': ('Villain', 0.5, 2),
                 'Villain Hammer(fleet=True) W=2 κ=0.1': ('Villain', 0.1, 2),
-                'Worldline Hammer(fleet=True) W=2 κ=0.5': ('Worldline', 0.5, 2)}
+                'Worldline Hammer(fleet=True) W=2 κ=0.5': ('Worldline', 0.5, 2),
+                'Villain Hammer(fleet=True) W=1 κ=0.5': ('Villain', 0.5, 1)}
 SPACE_N, SPACE_CHAINS, SPACE_RECORDS = 8, 4, 3
 #: S2's NeighborhoodUpdate: L, records (one chain a chains-row).
 SPACE_LARGE_N, SPACE_LARGE_RECORDS = 1024, 3
@@ -3108,7 +3447,7 @@ def phase_space_fleets(torch, card):
     launches = {k: f.launches for k, f in counters.items()}
     launches['halo_exchanges'] = space.halo_exchange.calls - halo
     say(f'  S2: {time.perf_counter() - t0!r} s (card: {card}); launches {launches}')
-    require(launches['slab'] > 0 and launches['worm'] > 0 and launches['worldline_worm'] > 0,
+    require(all(launches[k] > 0 for k in ('slab', 'worm', 'worldline_worm', 'chunked_worm')),
             f'S2: a kernel of the space path never launched: {launches}')
     require(launches['sweep'] == 0, f'S2: the whole-torus sweep ran on a slab: {launches}')
     return launches
@@ -3190,6 +3529,11 @@ def main():
     exact = phase_general_exact(torch)
     general = phase_general_full_width(torch, card)
     phase_general_host_path(torch)
+    round_trip_ns = memory_round_trip_ns(torch)
+    say(f'[{card}] one device-memory round trip: {round_trip_ns!r} ns (one thread chasing 20000 '
+        f'dependent loads through a random cycle over 256 MiB, csrc/probe.cu; median of 3)')
+    k1_err, k1 = phase_chunked_worm(torch, card, round_trip_ns)
+    k2_err, k2, (k2_capped_ms, k2_plain_ms) = phase_general_worldline_worm(torch, card)
     phase_cli()
     scripts = [phase(torch, card) for phase in (
         phase_scan_w1, phase_scan_w2, phase_scan_l256, phase_pod_fleet, phase_self_dual,
@@ -3199,7 +3543,7 @@ def main():
     odd_scripts = phase_odd_scripts(torch, card)
     phase_calculus_general(torch)
     phase_d4_topology(torch, card)
-    phase_worldline_general(torch, card)
+    d3 = phase_worldline_general(torch, card)
     phase_dimension(torch, card)
     offset_err = phase_chain_offsets(torch, card)
     digests, mesh_launches = phase_mesh_fleets(torch, card)
@@ -3213,6 +3557,29 @@ def main():
     ms |= w_ms
     plain_ms |= w_plain_ms
     bounds |= w_bounds
+    err |= {'chunked_worm': k1_err, 'worldline_worm_general': k2_err}
+    # K1's and K2's paths: the generic Villain Hammer at W=1 (G2b's L=256 row)
+    # and the generic Worldline Hammer at D >= 3 (D3).
+    path = launches | {'chunked_worm': general['chunked_worm'],
+                       'worldline_worm_general': d3['worldline_worm_general']}
+    ms |= {'chunked_worm': k1['ms'], 'worldline_worm_general': k2[K2_TIMED_CHAINS[0]]['ms']}
+    plain_ms |= {'chunked_worm': k1['plain_ms'], 'worldline_worm_general': k2_plain_ms}
+    bounds |= {'chunked_worm': k1['bound'],
+               'worldline_worm_general': k2[K2_TIMED_CHAINS[0]]['bound']}
+    extra = {'chunked_worm': {'latency_floor_ms': k1['latency_floor_ms'],
+                              'shape': f'L=256, 512 chains, {K1_MOVES} micro-moves'},
+             'worldline_worm_general': {
+                 'latency_floor_ms': k2[K2_TIMED_CHAINS[0]]['latency_floor_ms'],
+                 'round_trip_ns_in_its_working_set': k2[K2_TIMED_CHAINS[0]]['round_trip_ns'],
+                 'ns_per_move_of_the_longest_worm': k2[K2_TIMED_CHAINS[0]]['ns_per_move'],
+                 'shape': f'D=4, N=8, {K2_TIMED_CHAINS[0]} chains, κ=0.3, W=1, cap 8·sites',
+                 'plain_ms_capped_at': ODD_REPLAY_CAP, 'ms_at_that_cap': k2_capped_ms,
+                 f'at_{K2_TIMED_CHAINS[1]}_chains': {
+                     'ms': k2[K2_TIMED_CHAINS[1]]['ms'],
+                     'ns_per_move_of_the_longest_worm': k2[K2_TIMED_CHAINS[1]]['ns_per_move'],
+                     'bound_ms': k2[K2_TIMED_CHAINS[1]]['bound'][0],
+                     'latency_floor_ms': k2[K2_TIMED_CHAINS[1]]['latency_floor_ms'],
+                     'round_trip_ns_in_its_working_set': k2[K2_TIMED_CHAINS[1]]['round_trip_ns']}}}
 
     sources = {
         'sweep': ('supervillain_tpu_torch/csrc/sweep.cu', 'supervillain_tpu/ops/pallas_sweep.py:424'),
@@ -3224,6 +3591,11 @@ def main():
                            'supervillain_tpu/ops/pallas_worldline_hammer.py:241'),
         'worldline_hammer': ('supervillain_tpu_torch/ops/worldline_hammer.py',
                              'supervillain_tpu/ops/pallas_worldline_hammer.py:412'),
+        # No Pallas kernel: the JAX package's device loops these put on the card.
+        'chunked_worm': ('supervillain_tpu_torch/csrc/worm.cu',
+                         'supervillain_tpu/generators/villain.py:614'),
+        'worldline_worm_general': ('supervillain_tpu_torch/csrc/worldline_worm_general.cu',
+                                   'supervillain_tpu/generators/worldline.py:335'),
     }
     def odd(name, N):
         t = odd_timing[N].get(name)
@@ -3231,26 +3603,26 @@ def main():
 
     report = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': src, 'replaces': replaces,
-         'launches': launches[name],
-         'launches_by_path': {'sample_fused_fleet (phases 6, W4)': launches[name],
+         'launches': path[name],
+         'launches_by_path': {'sample_fused_fleet (phases 6, W4)': launches.get(name, 0),
                               'sample_fleet, exact cases (G1)': exact.get(name, 0),
                               'sample_fleet Hammer(fleet=True), L=256 (G2b)': general.get(name, 0),
                               'the ported scripts at even N (E2-E8)': scripts[name],
                               'odd N against the plain twins (O1)': odd_launches.get(name, 0),
                               'the scripts at their odd default N (O2)': odd_scripts[name],
-                              'D >= 3 (D2-D4)': 0,
+                              'D >= 3 (D2-D4)': d3.get(name, 0),
                               'sharded fleets on the card (P2)': mesh_launches[name],
                               'space-sharded fleets (S2)': space_launches.get(
                                   'slab' if name == 'sweep' else name, 0)},
-         'launches_by_parity': {'even': launches[name] + exact.get(name, 0)
-                                + general.get(name, 0) + scripts[name],
+         'launches_by_parity': {'even': launches.get(name, 0) + exact.get(name, 0)
+                                + general.get(name, 0) + scripts[name] + d3.get(name, 0),
                                 'odd': odd_launches.get(name, 0) + odd_scripts[name]},
          'max_abs_err': max(err[name], odd_err.get(name, 0.0), offset_err.get(name, 0.0)),
          'ms': ms[name], 'plain_ms': plain_ms[name], 'bound_ms': bounds[name][0],
          'bound_by': bounds[name][1], 'library_ms': None,
          'at_N255': odd(name, ODD_LARGE_N), 'at_N256_same_run': odd(name, 256)}
         | ({'slab_entry': {'launches': space_launches['slab'], 'at_N1024_by_split': slab}}
-           if name == 'sweep' else {})
+           if name == 'sweep' else {}) | extra.get(name, {})
         for name, (src, replaces) in sources.items()]}
     say(f'card: {card}')
     say(json.dumps(report))

@@ -8,17 +8,18 @@ color of the lattice (2 at even N, 2^max(D,2) at odd N); the worms are D=2
 only, as the JAX package's are.
 
 - ``NeighborhoodUpdate`` and ``ExactNeighborhoodUpdate`` run one sweep through
-  :func:`..ops.sweep.neighborhood_sweeps` in D=2, and ``ClassicWorm`` one worm
-  through :func:`..ops.worm.classic_worms`: on the card their CUDA kernels (B1,
-  B2), on the CPU their plain twins (the sweep's draws from the step's
-  ``torch.Generator``, the worm's from the kernel's Philox stream, seeded
+  :func:`..ops.sweep.neighborhood_sweeps` in D=2, ``ClassicWorm`` one worm
+  through :func:`..ops.worm.classic_worms` and ``ChunkedWorm`` its micro-moves
+  through :func:`..ops.worm.chunked_worms`: on the card their CUDA kernels (B1,
+  B2, K1), on the CPU their plain twins (the sweep's draws from the step's
+  ``torch.Generator``, the worms' from the kernels' Philox streams, seeded
   from it).  At D >= 3 no kernel exists (the TPU kernels are D=2
   only): the neighborhood sweep runs its D-general form,
   :func:`..ops.sweep.plain_sweeps`, as PyTorch operations on the fields'
   device, so a D >= 3 chain launches no kernel.
-- ``SiteUpdate``, ``LinkUpdate``, ``ExactUpdate``, ``CohomologyUpdate`` and
-  ``ChunkedWorm`` are PyTorch operations on either device, as the JAX package
-  runs them outside Pallas.  Their ΔS algebra is in the ``*_delta_s`` functions.
+- ``SiteUpdate``, ``LinkUpdate``, ``ExactUpdate`` and ``CohomologyUpdate`` are
+  PyTorch operations on either device, as the JAX package runs them outside
+  Pallas.  Their ΔS algebra is in the ``*_delta_s`` functions.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from ..models import Villain
 from ..ops import calculus as calc
 from ..ops import kernels, shard
 from ..ops.sweep import SweepDraws, neighborhood_sweeps, plain_sweeps, slab_pass, slab_residual
-from ..ops.worm import _LINK_DIR, _LINK_OFF, _MOVES, _PLAQUETTE, classic_worms
+from ..ops.worm import chunked_worms, classic_worms
 from .base import Generator, PassUpdate, metropolis, uniform_nonzero_int
 from .combining import KeepEvery, Sequentially
 
@@ -427,8 +428,10 @@ class ChunkedWorm(_WormReport, Generator):
     Villain D=2, **W=1 only**: there every configuration is valid and each
     micro-move keeps e^{-S} × uniform(head, tail) stationary, so emitting at a
     fixed stride is unbiased.  A fixed trip count over the chain axis makes a
-    fleet's step independent of its slowest chain.  It runs as PyTorch
-    operations (tens of launches a micro-move on the card).  Tallies the same
+    fleet's step independent of its slowest chain.  One step is one call of
+    :func:`..ops.worm.chunked_worms` (K1 on the card; on the CPU its plain
+    twin on the kernel's Philox stream, seeded from the step's generator).
+    Tallies the same
     inline ``Vortex_Vortex`` and ``Worm_Length`` (moves tallied this step);
     ``sweeps`` in the stats counts completed worms."""
 
@@ -457,54 +460,12 @@ class ChunkedWorm(_WormReport, Generator):
         return cfg | {'worm': worm.expand(B, 5).contiguous()}
 
     def step(self, generator, cfg, stats):
-        S, L = self.Action, self.Lattice
-        N, T = L.N, self.moves_per_step
-        phi, n = cfg['phi'], cfg['n']
-        B, dev = phi.shape[0], phi.device
-        dphi = calc.d(L, 0, phi).reshape(-1)
-        flat = n.reshape(-1).clone()
-        worm = cfg['worm'].long()
-        head, tail, orientation = worm[:, :2], worm[:, 2:4], worm[:, 4].to(n.dtype)
-
-        u = _uniform(generator, (T, 2, B), phi, axis=2)
-        choices = shard.randint(generator, 0, 4, (T, B), device=dev, axis=1)
-        restarts = shard.randint(generator, 0, N, (T, B, 4), device=dev, axis=1)
-        orients = 2 * shard.randint(generator, 0, 2, (T, B), device=dev, dtype=n.dtype,
-                                    axis=1) - 1
-        moves = torch.tensor(_MOVES, device=dev)
-        link_dir = torch.tensor(_LINK_DIR, device=dev)
-        link_off = torch.tensor(_LINK_OFF, device=dev)
-        plaquette = torch.tensor(_PLAQUETTE, dtype=n.dtype, device=dev)
-        base = torch.arange(B, device=dev) * (2 * N * N)
-        hist = torch.zeros(B * N * N, dtype=phi.dtype, device=dev)
-        closes = torch.zeros(B, dtype=phi.dtype, device=dev)
-
-        for i in range(T):
-            close_now = u[i, 0] >= 0.8                   # W=1: always closed
-            choice = choices[i]
-            next_head = torch.remainder(head + moves[choice], N)
-            lpos = torch.remainder(head + link_off[choice], N)
-            at = base + link_dir[choice] * (N * N) + lpos[:, 0] * N + lpos[:, 1]
-            dn = orientation * plaquette[choice]
-            dnf = dn.to(phi.dtype)
-            link = dphi[at] - TWO_PI * flat[at].to(phi.dtype)
-            dS = (S.kappa / 2) * (-TWO_PI * dnf) * (2 * link - TWO_PI * dnf)
-            accept = (u[i, 1] < torch.clamp(torch.exp(-dS), max=1.0)) & ~close_now
-            flat.index_add_(0, at, torch.where(accept, dn, 0))
-            head = torch.where(accept[:, None], next_head, head)
-            disp = torch.remainder(head - tail, N)
-            hist.index_add_(0, base // 2 + disp[:, 0] * N + disp[:, 1], (~close_now).to(phi.dtype))
-            # Close and restart: a fresh worm within the same chunk.
-            tail = torch.where(close_now[:, None], restarts[i, :, :2], tail)
-            head = torch.where(close_now[:, None], restarts[i, :, 2:], head)
-            orientation = torch.where(close_now, orients[i], orientation)
-            closes = closes + close_now.to(phi.dtype)
-
-        hist = hist.reshape(B, N, N)
-        length = hist.sum(dim=(1, 2))
-        worm = torch.cat([head, tail, orientation[:, None].long()], dim=1).to(torch.int32)
-        stats = self._tally(stats, B, length, length, 1.0, sweeps=closes)
-        return (cfg | {'n': flat.reshape(n.shape), 'worm': worm}, stats,
+        phi = cfg['phi']
+        n, worm, hist, length, closes = chunked_worms(
+            phi, cfg['n'], cfg['worm'], kappa=self.Action.kappa, moves=self.moves_per_step,
+            generator=generator)
+        stats = self._tally(stats, phi.shape[0], length, length, 1.0, sweeps=closes)
+        return (cfg | {'n': n, 'worm': worm}, stats,
                 {'Vortex_Vortex': hist, 'Worm_Length': length})
 
     def report(self, stats):

@@ -10,10 +10,9 @@ fuses the first three, so none is a kernel's function alone).  They sweep
 every checkerboard color of the lattice: 2 at even N, 2^max(D,2) at odd N.
 ``ClassicWorm`` runs one worm per chain through
 :func:`..ops.worldline_worm.worldline_worms` in D=2 (the CUDA kernel B5 on the
-card, its plain twin on the CPU).  At D >= 3 no kernel exists (the TPU kernels
-are D=2 only, as the JAX package's are): the worm runs the D-general move
-rule of :func:`..ops.worldline_worm.plain_worldline_worms` as PyTorch
-operations on the fields' device, so a D >= 3 chain launches no kernel.
+card, its plain twin on the CPU) and through
+:func:`..ops.worldline_worm.worldline_worms_general` at D >= 3 (the CUDA
+kernel K2 on the card; on the CPU the D-general plain twin on K2's stream).
 """
 
 from __future__ import annotations
@@ -22,10 +21,10 @@ import torch
 
 from ..models import Worldline
 from ..ops import calculus as calc
-from ..ops import kernels, shard
+from ..ops import shard
 from ..ops.worldline import (WorldlineSweepDraws, coexact_pass, inverse_w, on_component, passes,
                              residual, vortex_pass, wrapping_pass)
-from ..ops.worldline_worm import KernelWorldlineWormDraws, plain_worldline_worms, worldline_worms
+from ..ops.worldline_worm import worldline_worms, worldline_worms_general
 from ..device import float_dtype_of
 from .base import Generator, PassUpdate, metropolis
 from .combining import KeepEvery, Sequentially
@@ -211,8 +210,8 @@ class PlaquetteUpdate(PassUpdate):
 class ClassicWorm(_WormReport, Generator):
     r"""Prokof'ev–Svistunov worm on the sites, one per chain and step, in any D:
     :func:`..ops.worldline_worm.worldline_worms` in D=2 (B5 on the card), and
-    at D >= 3 its plain move rule as PyTorch operations on the fields' device
-    (no kernel exists there).  Tallies the inline ``Spin_Spin`` histogram and
+    :func:`..ops.worldline_worm.worldline_worms_general` at D >= 3 (K2 on the
+    card).  Tallies the inline ``Spin_Spin`` histogram and
     ``Worm_Length``.  ``max_moves`` caps a worm; an unclosed worm breaks δm = 0
     and is rolled back at every W.  Never changes v."""
 
@@ -230,17 +229,10 @@ class ClassicWorm(_WormReport, Generator):
 
     def step(self, generator, cfg, stats):
         m, v, L = cfg['m'], cfg['v'], self.Lattice
-        if L.D == 2:
-            m, hist, length, truncated = worldline_worms(
-                m, v, kappa=self.Action.kappa, W=self.Action.W, worms=1,
-                max_worm_moves=self.max_moves, generator=generator)
-        else:
-            draws = KernelWorldlineWormDraws(kernels.seed_from(generator), B=m.shape[0], N=L.N,
-                                             device=m.device, chain0=shard.chain0_of(generator),
-                                             D=L.D)
-            m, hist, length, truncated = plain_worldline_worms(
-                m, v, kappa=self.Action.kappa, W=self.Action.W, worms=1,
-                max_worm_moves=self.max_moves, draws=draws)
+        worms = worldline_worms if L.D == 2 else worldline_worms_general
+        m, hist, length, truncated = worms(
+            m, v, kappa=self.Action.kappa, W=self.Action.W, worms=1,
+            max_worm_moves=self.max_moves, generator=generator)
         stats = self._tally(stats, m.shape[0], length, length, 1 - truncated)
         # Float32 tallies, as the JAX package keeps them (exact below 2**24).
         return cfg | {'m': m}, stats, {'Spin_Spin': hist.float(), 'Worm_Length': length.float()}
@@ -252,7 +244,8 @@ def Hammer(S, worms=1, fleet=False, max_worm_moves=None):
 
     ``fleet``: bound the worm's step time over many chains
     (``max_moves=max_worm_moves``, default 8·sites); ``max_worm_moves`` also
-    caps the worm without ``fleet``.  Any D; at D >= 3 no step launches a kernel."""
+    caps the worm without ``fleet``.  Any D; at D >= 3 the worm is K2 on the card
+    and the other updates PyTorch operations."""
     require_worldline(S)
     cap = max_worm_moves
     if fleet and cap is None:

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``supervillain_tpu_torch/csrc``.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface and loaded with ``ctypes``.  The build happens at
+The sources are compiled by ``nvcc`` for ``sm_90a``, one process a source
+started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``.  The build happens at
 first use, into ``build/torch_kernels/<hash of the sources>/`` beside the
 package (``SUPERVILLAIN_TORCH_BUILD`` overrides the directory), so a second
 process with unchanged sources loads the library without compiling.  Nothing
@@ -24,7 +25,7 @@ from .shard import torch_generator
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / 'csrc'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _P, _I, _U, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong,
                              ctypes.c_ulonglong, ctypes.c_float)
@@ -44,6 +45,10 @@ _SIGNATURES = {
     'sv_worldline_sweeps_winf': _WORLDLINE_SWEEPS,
     'sv_worldline_worms': _WORLDLINE_WORMS,
     'sv_worldline_worms_winf': _WORLDLINE_WORMS,
+    'sv_chunked_worms': [_P] * 7 + [_I, _I, _F, _I, _ULL, _U, _P],
+    'sv_worldline_worms_general': [_P] * 6 + [_LL, _I, _I, _I, _I, _F, _F, _I, _LL, _I, _ULL, _U,
+                                              _P],
+    'sv_pointer_chase': [_P, _I, _I, _P, _P],
 }
 
 _library = None
@@ -86,19 +91,26 @@ def build() -> pathlib.Path:
     if target.exists():
         return target
     target.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == '.cu']
-    with tempfile.NamedTemporaryFile(dir=target.parent, suffix='.so', delete=False) as tmp:
-        partial = tmp.name
-    try:
-        done = subprocess.run([_nvcc(), *NVCC_FLAGS, '-I', str(CSRC), '-o', partial, *cu],
-                              capture_output=True, text=True)
-        build_log = done.stdout + done.stderr
+    cu = [p for p in _sources() if p.suffix == '.cu']
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=target.parent) as work:
+        # One nvcc a source, all at once, then one link.
+        objects = [os.path.join(work, p.stem + '.o') for p in cu]
+        jobs = [subprocess.Popen([nvcc, *NVCC_FLAGS, '-I', str(CSRC), '-c', str(p), '-o', o],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for p, o in zip(cu, objects)]
+        logs = [job.communicate()[0] for job in jobs]
+        build_log = ''.join(logs)
+        failed = [(p.name, job.returncode) for p, job in zip(cu, jobs) if job.returncode != 0]
+        if failed:
+            raise RuntimeError(f'nvcc failed on {failed}:\n{build_log}')
+        partial = os.path.join(work, target.name)
+        done = subprocess.run([nvcc, '-gencode', 'arch=compute_90a,code=sm_90a', '-shared',
+                               '-o', partial, *objects], capture_output=True, text=True)
+        build_log += done.stdout + done.stderr
         if done.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({done.returncode}):\n{build_log}')
+            raise RuntimeError(f'nvcc could not link ({done.returncode}):\n{build_log}')
         os.replace(partial, target)
-    finally:
-        if os.path.exists(partial):
-            os.unlink(partial)
     return target
 
 

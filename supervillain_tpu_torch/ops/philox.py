@@ -3,8 +3,8 @@
 Bit for bit the generator of ``csrc/philox.cuh`` (Salmon et al., SC'11).
 32-bit words are held in int64 tensors; the 32x32-bit products are split into
 16-bit halves so that no intermediate leaves the int64 range.  Fed through the
-draw sources :class:`..sweep.KernelSweepDraws`, :class:`..worm.KernelWormDraws`
-and their Worldline counterparts, it lets the plain versions repeat a kernel call
+draw sources :class:`..sweep.KernelSweepDraws`, :class:`..worm.KernelWormDraws`,
+:class:`..worm.KernelChunkedWormDraws` and their Worldline counterparts, it lets the plain versions repeat a kernel call
 draw for draw, on any device.
 """
 
@@ -19,6 +19,9 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 #: XORed into a kernel seed to key the Worldline kernels (``csrc/philox.cuh``),
 #: so that a Villain and a Worldline call with one seed never share draws.
 WORLDLINE_SALT = 0x243F6A8885A308D3
+#: XORed into a kernel seed to key the ChunkedWorm kernel (``csrc/worm.cu``),
+#: so that its draws differ from the classic worm's for the same seed.
+CHUNKED_SALT = 0x13198A2E03707344
 
 
 def _mulhilo(m: int, x):
@@ -37,6 +40,11 @@ def key_of(seed: int):
 def worldline_key(seed: int):
     """The key words of the Worldline kernels for a 64-bit kernel seed."""
     return key_of(seed ^ WORLDLINE_SALT)
+
+
+def chunked_key(seed: int):
+    """The key words of the ChunkedWorm kernel for a 64-bit kernel seed."""
+    return key_of(seed ^ CHUNKED_SALT)
 
 
 def philox4x32_10(counter, key, device='cpu'):

@@ -5,13 +5,18 @@ Counterpart of :func:`supervillain_tpu.ops.pallas_worldline_hammer.worldline_wor
 :func:`plain_worldline_worms` on the kernel's own Philox stream, a CUDA batch
 runs the kernel of ``csrc/worldline_worm.cu``, and any other device raises.
 
+:func:`worldline_worms_general` (K2) dispatches the same way at any D, the
+D >= 3 worm's path: a CPU batch runs :func:`plain_worldline_worms` on the
+stream of :class:`KernelWorldlineWormDraws` with ``D``, a CUDA batch runs the
+kernel of ``csrc/worldline_worm_general.cu`` (which replays that stream draw
+for draw), and any other device raises.
+
 The plain version is the move rule of
-:class:`supervillain_tpu.generators.worldline.ClassicWorm` in any dimension D
-(the eager worm runs it at D >= 3, where no kernel exists), advancing all
-chains one move per iteration (a chain whose worm has closed stops drawing),
-with the draws coming from a draw source: the kernel's Philox stream
-(:class:`KernelWorldlineWormDraws`), which :func:`worldline_worms` and the
-eager worm at D >= 3 draw on the CPU, a ``torch.Generator``
+:class:`supervillain_tpu.generators.worldline.ClassicWorm` in any dimension D,
+advancing all chains one move per iteration (a chain whose worm has closed
+stops drawing), with the draws coming from a draw source: the kernels' Philox
+stream (:class:`KernelWorldlineWormDraws`), which both dispatchers draw on the
+CPU, a ``torch.Generator``
 (:class:`WorldlineWormDraws`), or the JAX package's own (tests).  The worm
 changes only m; the crossed link's residual is m − δv/_W with δv/_W fixed for
 the call.
@@ -67,9 +72,10 @@ class KernelWorldlineWormDraws:
     the chain's index in the batch, with the kernel's conversions
     (``csrc/worldline_worm.cu``).  Moves are drawn ``BLOCK`` at a time: one
     Philox evaluation per block instead of per move keeps a replay of long worms
-    affordable.  At D >= 3, where no kernel exists, the same stream goes on: the
-    tail's coordinates past the second from (chain, worm, j, 2), j = 1, 2, ...,
-    and the move choice as the word modulo 2D (the kernel's ``& 3`` at D=2)."""
+    affordable.  At D >= 3 (K2, ``csrc/worldline_worm_general.cu``) the same
+    stream goes on: the tail's coordinates past the third from (chain, worm, j,
+    2), j = 1, 2, ..., and the move choice as the word modulo 2D (B5's ``& 3``
+    at D=2)."""
 
     BLOCK = 256
 
@@ -211,3 +217,74 @@ def worldline_worms(m, v, *, kappa, W, worms=1, max_worm_moves=None, generator, 
 
 #: Calls that launched the CUDA kernel (the CPU path never counts).
 worldline_worms.launches = 0
+
+
+def worldline_worms_general(m, v, *, kappa, W, worms=1, max_worm_moves=None, generator,
+                            chain0=None):
+    """Run ``worms`` whole worldline worms per chain in any dimension D (K2).
+
+    Parameters
+    ----------
+    m: (B, D, N, ..., N) int; v: (B, D(D−1)/2, N, ..., N) int or float (W = inf)
+        — read only
+    max_worm_moves: per-worm move cap (exact rollback of an unclosed worm) or None
+    generator: ``torch.Generator`` or a shard's :class:`.shard.ShardGenerator`
+        — the kernel seed, on the CPU (:class:`KernelWorldlineWormDraws` with
+        ``D``) as on a GPU
+    chain0: the global index of the batch's first chain, which the kernel's
+        stream counts from (default: the generator's, 0 for a ``torch.Generator``)
+
+    Returns
+    -------
+    (m, hist, length, truncated): updated links with δm = 0, the summed inline
+    ``Spin_Spin`` histogram (B, N, ..., N), the total worm length (B,) and the
+    number of truncated (rolled back) worms (B,).
+    """
+    L = lattice_of(m)
+    B, N, D = m.shape[0], L.N, L.D
+    chain0 = shard.resolve_chain0(generator, chain0, m.device)
+    if m.device.type == 'cpu':
+        draws = KernelWorldlineWormDraws(kernels.seed_from(generator), B=B, N=N,
+                                         device=m.device, chain0=chain0, D=D)
+        return plain_worldline_worms(m, v, kappa=kappa, W=W, worms=worms,
+                                     max_worm_moves=max_worm_moves, draws=draws)
+    if m.device.type != 'cuda':
+        raise ValueError(f'worldline_worms_general runs on the CPU or a CUDA device, not {m.device}')
+
+    vdt = torch.float32 if W == float('inf') else torch.int32
+    components = D * (D - 1) // 2
+    if v.device != m.device or (m.dtype, v.dtype) != (torch.int32, vdt):
+        raise TypeError(f'K2 needs int32 m and {vdt} v on one CUDA device, got {m.dtype} on '
+                        f'{m.device} and {v.dtype} on {v.device}')
+    if tuple(v.shape) != (B, components) + L.dims or m.shape[1] != D or N < 2:
+        raise ValueError(f'K2 needs m (B, {D}) + {L.dims} and v (B, {components}) + {L.dims} '
+                         f'with N >= 2, got {tuple(m.shape)} and {tuple(v.shape)}')
+    V = N ** D
+    if B * D * V >= 2 ** 31:
+        raise ValueError(f'{B} chains of N={N}, D={D} exceed the kernel\'s 32-bit link indexing')
+    cap = -1 if max_worm_moves is None else int(max_worm_moves)
+    if cap >= 2 ** 31:
+        raise ValueError(f'max_worm_moves must be below 2**31, got {cap}')
+    m = m.contiguous()
+    dvw = (calc.delta(L, 2, v).to(torch.float32) * inverse_w(W)).contiguous()
+    bits = max(1, (2 * D - 1).bit_length())
+    log_words = -(-cap // (32 // bits)) if cap >= 0 else 0
+    lib = kernels.library()
+    m_out = torch.empty_like(m)
+    hist = torch.empty((B,) + L.dims, dtype=torch.float32, device=m.device)
+    stat = torch.empty((B, 2), dtype=torch.float32, device=m.device)
+    log = torch.empty((B, log_words), dtype=torch.int32, device=m.device) if cap >= 0 else None
+    seed = kernels.seed_from(generator)
+    with torch.cuda.device(m.device):
+        code = lib.sv_worldline_worms_general(
+            m.data_ptr(), dvw.data_ptr(), m_out.data_ptr(), hist.data_ptr(), stat.data_ptr(),
+            None if log is None else log.data_ptr(), log_words, B, D, N, V, float(0.5 / kappa),
+            float(close_probability(D)), int(worms), cap, bits, seed,
+            kernels.chain_word(chain0, B), kernels.stream_handle(m.device))
+    kernels.check(code, 'worldline_worms_general')
+    worldline_worms_general.launches += 1
+    return m_out, hist, stat[:, 0], stat[:, 1]
+
+
+#: Calls that launched the CUDA kernel (the CPU path never counts).
+worldline_worms_general.launches = 0

@@ -1,9 +1,14 @@
-"""Classic (plaquette) worms: the CUDA kernel and its plain PyTorch twin.
+"""Classic (plaquette) worms: the CUDA kernels and their plain PyTorch twins.
 
 Counterpart of :func:`supervillain_tpu.ops.pallas_worm.classic_worms`.
 :func:`classic_worms` dispatches by device: a CPU batch runs
 :func:`plain_worms` on the kernel's own Philox stream, a CUDA batch runs the
 kernel of ``csrc/worm.cu``, and any other device raises.
+
+:func:`chunked_worms` (K1) does the same for the micro-moves of
+:class:`supervillain_tpu.generators.villain.ChunkedWorm` (its ``lax.fori_loop``),
+with :func:`plain_chunked_worms` as its twin and
+:class:`KernelChunkedWormDraws` as the kernel's draw source.
 
 The plain version is the move rule of
 :class:`supervillain_tpu.generators.villain.ClassicWorm`, advancing all chains
@@ -202,3 +207,132 @@ def classic_worms(phi, n, *, kappa, W, worms=1, max_worm_moves=None, generator, 
 
 #: Calls that launched the CUDA kernel (the CPU path never counts).
 classic_worms.launches = 0
+
+
+class KernelChunkedWormDraws:
+    """The draws of one ChunkedWorm-kernel call (K1) seeded with ``seed``, as a
+    draw source of :func:`plain_chunked_worms`: Philox-4x32-10 keyed by the
+    seed's ChunkedWorm key and countered by (chain, move, 0, 0) for the close
+    uniform, the choice (word & 3), the Metropolis uniform and the restart's
+    orientation (the fourth word's top bit), and (chain, move, 1, 0) for the
+    restart's tail and head, the chain word being ``chain0`` + the chain's
+    index in the batch, with the kernel's conversions (``csrc/worm.cu``)."""
+
+    def __init__(self, seed, *, B, N, device, chain0=0):
+        self.key = philox.chunked_key(seed)
+        self.N, self.device = N, device
+        self.chain = chain0 + torch.arange(B, device=device)
+
+    def chunk(self, T):
+        t = torch.arange(T, device=self.device)[:, None]
+        m = philox.philox4x32_10((self.chain, t, 0, 0), self.key, self.device)
+        r = philox.philox4x32_10((self.chain, t, 1, 0), self.key, self.device)
+        restart = torch.stack([(w * self.N) >> 32 for w in r], dim=-1)
+        orientation = torch.where((m[3] >> 31) == 1, 1, -1)
+        return philox.u24(m[0]), m[1] & 3, philox.u24(m[2]), restart, orientation
+
+
+def plain_chunked_worms(phi, n, worm, *, kappa, moves, draws):
+    """``moves`` ChunkedWorm micro-moves per chain in plain PyTorch, on any
+    device, from each chain's carried worm (B, 5): head (t, x), tail (t, x),
+    orientation.  The move rule of the JAX ``ChunkedWorm.step`` (W=1, so
+    every move finds the worm closed): a close (probability 0.2) restarts a
+    fresh worm at once; any other move is the classic worm's Metropolis move
+    and tallies head − tail.  Returns ``(n, worm, hist, length, closes)`` like
+    :func:`chunked_worms`."""
+    B, _, N, _ = n.shape
+    L = lattice(N)
+    dev, fdt = n.device, phi.dtype
+    dphi = calc.d(L, 0, phi).reshape(-1)
+    flat = n.reshape(-1).clone()
+    worm = worm.long()
+    head, tail, orientation = worm[:, :2], worm[:, 2:4], worm[:, 4].to(n.dtype)
+    u_close, choices, u_accept, restarts, orients = draws.chunk(moves)
+    step = torch.tensor(_MOVES, device=dev)
+    link_dir = torch.tensor(_LINK_DIR, device=dev)
+    link_off = torch.tensor(_LINK_OFF, device=dev)
+    plaquette = torch.tensor(_PLAQUETTE, dtype=n.dtype, device=dev)
+    base = torch.arange(B, device=dev) * (2 * N * N)
+    hist = torch.zeros(B * N * N, dtype=fdt, device=dev)
+    closes = torch.zeros(B, dtype=fdt, device=dev)
+
+    for i in range(moves):
+        close_now = u_close[i] >= 0.8                    # W=1: always closed
+        choice = choices[i]
+        next_head = torch.remainder(head + step[choice], N)
+        lpos = torch.remainder(head + link_off[choice], N)
+        at = base + link_dir[choice] * (N * N) + lpos[:, 0] * N + lpos[:, 1]
+        dn = orientation * plaquette[choice]
+        dnf = dn.to(fdt)
+        link = dphi[at] - TWO_PI * flat[at].to(fdt)
+        dS = (kappa / 2) * (-TWO_PI * dnf) * (2 * link - TWO_PI * dnf)
+        accept = (u_accept[i] < torch.clamp(torch.exp(-dS), max=1.0)) & ~close_now
+        flat.index_add_(0, at, torch.where(accept, dn, 0))
+        head = torch.where(accept[:, None], next_head, head)
+        disp = torch.remainder(head - tail, N)
+        hist.index_add_(0, base // 2 + disp[:, 0] * N + disp[:, 1], (~close_now).to(fdt))
+        # Close and restart: a fresh worm within the same chunk.
+        restart = restarts[i].to(head.dtype)
+        tail = torch.where(close_now[:, None], restart[:, :2], tail)
+        head = torch.where(close_now[:, None], restart[:, 2:], head)
+        orientation = torch.where(close_now, orients[i].to(n.dtype), orientation)
+        closes = closes + close_now.to(fdt)
+
+    hist = hist.reshape(B, N, N)
+    worm = torch.cat([head, tail, orientation[:, None].long()], dim=1).to(torch.int32)
+    return flat.reshape(n.shape), worm, hist, hist.sum(dim=(1, 2)), closes
+
+
+def chunked_worms(phi, n, worm, *, kappa, moves, generator, chain0=None):
+    """Run ``moves`` ChunkedWorm micro-moves per chain (Villain, D=2, W=1).
+
+    Parameters
+    ----------
+    phi: (B, 1, N, N) float — read only; n: (B, 2, N, N) int
+    worm: (B, 5) int32 — each chain's carried worm (head t, x, tail t, x,
+        orientation), as ``ChunkedWorm.prepare`` lays it out
+    generator: ``torch.Generator`` or a shard's :class:`.shard.ShardGenerator`
+        — the kernel seed, on the CPU (:class:`KernelChunkedWormDraws`) as on a GPU
+    chain0: the global index of the batch's first chain, which the kernel's
+        stream counts from (default: the generator's, 0 for a ``torch.Generator``)
+
+    Returns
+    -------
+    (n, worm, hist, length, closes): updated links, the worm state after the
+    last move, the ``Vortex_Vortex`` histogram (B, N, N), the moves tallied
+    (B,) and the worms closed (B,).
+    """
+    moves = int(moves)
+    if not 0 <= moves < 2 ** 31:
+        raise ValueError(f'moves must lie in [0, 2**31), got {moves}')
+    chain0 = shard.resolve_chain0(generator, chain0, phi.device)
+    if phi.device.type == 'cpu':
+        draws = KernelChunkedWormDraws(kernels.seed_from(generator), B=n.shape[0],
+                                       N=n.shape[-1], device=phi.device, chain0=chain0)
+        return plain_chunked_worms(phi, n, worm, kappa=kappa, moves=moves, draws=draws)
+    if phi.device.type != 'cuda':
+        raise ValueError(f'chunked_worms runs on the CPU or a CUDA device, not {phi.device}')
+
+    B, N = kernels.require_fields(phi, n)
+    if worm.device != phi.device or worm.dtype != torch.int32 or tuple(worm.shape) != (B, 5):
+        raise ValueError(f'the worm state must be ({B}, 5) int32 on {phi.device}, got '
+                         f'{tuple(worm.shape)} {worm.dtype} on {worm.device}')
+    worm = worm.contiguous()
+    lib = kernels.library()
+    n_out = torch.empty_like(n)
+    worm_out = torch.empty_like(worm)
+    hist = torch.empty((B, N, N), dtype=torch.float32, device=phi.device)
+    stat = torch.empty((B, 2), dtype=torch.float32, device=phi.device)
+    seed = kernels.seed_from(generator)
+    with torch.cuda.device(phi.device):
+        code = lib.sv_chunked_worms(
+            phi.data_ptr(), n.data_ptr(), n_out.data_ptr(), worm.data_ptr(), worm_out.data_ptr(),
+            hist.data_ptr(), stat.data_ptr(), B, N, float(kappa / 2), moves, seed,
+            kernels.chain_word(chain0, B), kernels.stream_handle(phi.device))
+    kernels.check(code, 'chunked_worms')
+    chunked_worms.launches += 1
+    return n_out, worm_out, hist, stat[:, 0], stat[:, 1]
+
+
+#: Calls that launched the CUDA kernel (the CPU path never counts).
+chunked_worms.launches = 0

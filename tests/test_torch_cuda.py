@@ -682,3 +682,52 @@ def test_a_shard_with_chain0_gives_its_rows_of_the_whole_call(cuda, N):
 def _tensors(out):
     """A kernel wrapper's outputs as a list of tensors (inline dicts by key)."""
     return [t for x in out for t in ([x[k] for k in sorted(x)] if isinstance(x, dict) else [x])]
+
+
+# -- K1 (the ChunkedWorm) and K2 (the Worldline worm at D >= 3) ---------------
+
+@pytest.mark.parametrize('N', [5, 8])
+def test_chunked_worm_kernel_repeats_its_plain_twin(cuda, N):
+    """K1 against its plain twin on K1's Philox draws, and its shards (chain0)
+    against the whole call bit for bit."""
+    from supervillain_tpu_torch.ops.worm import (KernelChunkedWormDraws, chunked_worms,
+                                                 plain_chunked_worms)
+    B, T = 64, 64
+    g = torch.Generator().manual_seed(8)
+    phi = ((torch.rand((B, 1, N, N), generator=g) - 0.5) * 2 * math.pi).to(cuda)
+    n = torch.randint(-1, 2, (B, 2, N, N), generator=g, dtype=torch.int32).to(cuda)
+    worm = torch.cat([torch.randint(0, N, (B, 4), generator=g),
+                      2 * torch.randint(0, 2, (B, 1), generator=g) - 1], dim=1).int().to(cuda)
+    got = chunked_worms(phi, n, worm, kappa=0.1, moves=T, generator=torch.Generator().manual_seed(9))
+    seed = kernels.seed_from(torch.Generator().manual_seed(9))
+    want = plain_chunked_worms(phi, n, worm, kappa=0.1, moves=T,
+                               draws=KernelChunkedWormDraws(seed, B=B, N=N, device=cuda))
+    same = [(a == b).reshape(B, -1).all(dim=1) for a, b in zip(got, want)]
+    assert float(torch.stack(same).all(dim=0).float().mean()) >= 1 - 1 / B
+    part = chunked_worms(phi[16:], n[16:], worm[16:], kappa=0.1, moves=T,
+                         generator=torch.Generator().manual_seed(9), chain0=16)
+    for a, b in zip(got, part):
+        assert torch.equal(a[16:], b)
+
+
+@pytest.mark.parametrize('D,W', [(3, 1), (3, 2), (4, float('inf'))])
+def test_general_worldline_worm_kernel_repeats_its_plain_twin(cuda, D, W):
+    """K2 against its plain twin on the stream of KernelWorldlineWormDraws
+    with D (capped), δm = 0 after the call, and its shards bit for bit."""
+    from supervillain_tpu_torch.ops.worldline_worm import worldline_worms_general
+    B, N = 32, 4
+    S = worldline_action(N, 0.3, W, D=D)
+    cold = S.initial(cuda)
+    m, v = (x.expand((B,) + x.shape).contiguous() for x in (cold['m'], cold['v']))
+    common = dict(kappa=0.3, W=W, worms=2, max_worm_moves=256)
+    got = worldline_worms_general(m, v, generator=torch.Generator().manual_seed(3), **common)
+    seed = kernels.seed_from(torch.Generator().manual_seed(3))
+    want = plain_worldline_worms(m, v, draws=KernelWorldlineWormDraws(
+        seed, B=B, N=N, device=cuda, D=D), **common)
+    same = [(a == b).reshape(B, -1).all(dim=1) for a, b in zip(got, want)]
+    assert float(torch.stack(same).all(dim=0).float().mean()) >= 1 - 1 / B
+    assert bool((calculus.delta(S.Lattice, 1, got[0]) == 0).all())
+    part = worldline_worms_general(m[8:], v[8:], generator=torch.Generator().manual_seed(3),
+                                   chain0=8, **common)
+    for a, b in zip(got, part):
+        assert torch.equal(a[8:], b)

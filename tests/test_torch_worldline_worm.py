@@ -21,19 +21,19 @@ from test_torch_worldline_model import _closed_m
 
 class JaxWorldlineWormDraws:
     """The draws of the Worldline ``ClassicWorm.step`` for one worm per chain,
-    with the JAX generator's own key splits (one key per chain).  Its
-    Metropolis uniform is drawn in the promotion of v's dtype with float32:
-    float32 beside integer v, float64 beside float v (W=∞)."""
+    with the JAX generator's own key splits (one key per chain), in dimension
+    ``D``.  Its Metropolis uniform is drawn in the promotion of v's dtype with
+    float32: float32 beside integer v, float64 beside float v (W=∞)."""
 
-    def __init__(self, keys, N, accept_dtype):
-        self.keys, self.N, self.accept_dtype = keys, N, accept_dtype
+    def __init__(self, keys, N, accept_dtype, D=2):
+        self.keys, self.N, self.accept_dtype, self.D = keys, N, accept_dtype, D
 
     def start(self):
         orientation, tail, self.loop = [], [], []
         for key in self.keys:
             k_orient, k_tail, k_loop = jax.random.split(key, 3)
             orientation.append(1 if bool(jax.random.bernoulli(k_orient)) else -1)
-            tail.append(np.asarray(jax.random.randint(k_tail, (2,), 0, self.N)))
+            tail.append(np.asarray(jax.random.randint(k_tail, (self.D,), 0, self.N)))
             self.loop.append(k_loop)
         return torch.tensor(orientation), torch.as_tensor(np.stack(tail))
 
@@ -43,7 +43,7 @@ class JaxWorldlineWormDraws:
             key, k_close, k_choice, k_accept = jax.random.split(key, 4)
             self.loop[c] = key
             u_close.append(float(jax.random.uniform(k_close)))
-            choice.append(int(jax.random.randint(k_choice, (), 0, 4)))
+            choice.append(int(jax.random.randint(k_choice, (), 0, 2 * self.D)))
             u_accept.append(float(jax.random.uniform(k_accept, dtype=self.accept_dtype)))
         return (torch.tensor(u_close, dtype=torch.float64), torch.tensor(choice),
                 torch.tensor(u_accept, dtype=torch.float64))
