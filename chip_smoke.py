@@ -2999,6 +2999,12 @@ def mesh_fused_fleet(name, mesh, progress=None):
                                  seed=20261017, mesh=mesh, progress=progress)
 
 
+def counter(name):
+    """The port's counter ``name`` (``supervillain_tpu_torch.tracing``)."""
+    from supervillain_tpu_torch import tracing
+    return tracing.counters().get(name, 0)
+
+
 def collective_watch(calls, seen):
     """A ``progress`` wrapper that notes the collective count before each record
     and after the last."""
@@ -3160,9 +3166,10 @@ def p3_rank(rank, init, out):
     for name in MESH_FLEETS:
         seen = []
         fleet = mesh_fused_fleet(name, mesh, collective_watch(
-            lambda: distributed.collective.calls, seen))
+            lambda: counter('distributed.collective'), seen))
         result[name] = {'digest': fleet_digest(fleet), 'inside': seen[-1] - seen[0],
-                        'after': distributed.collective.calls - seen[-1], 'mesh': fleet.mesh,
+                        'after': counter('distributed.collective') - seen[-1],
+                        'mesh': fleet.mesh,
                         'device': str(torch.cuda.current_device())}
     with open(f'{out}/rank{rank}.json', 'w') as f:
         json.dump(result, f)
@@ -3383,7 +3390,7 @@ def phase_space_fleets(torch, card):
     import supervillain_tpu_torch as sv
     from supervillain_tpu_torch.generators import villain as gv, worldline as gw
     from supervillain_tpu_torch.ops import calculus as calc
-    from supervillain_tpu_torch.parallel import ChainMesh, chain_space_mesh, space
+    from supervillain_tpu_torch.parallel import ChainMesh, chain_space_mesh
 
     say(f'== phase S2: space-sharded fleets on cuda:0 listed 2 and 4 times (meshes '
         f'{", ".join(f"{c}x{s}" for c, s in SPACE_MESHES)}): {", ".join(SPACE_FLEETS)} at '
@@ -3416,7 +3423,7 @@ def phase_space_fleets(torch, card):
     counters = space_counters()
     for f in counters.values():
         f.launches = 0
-    halo = space.halo_exchange.calls
+    halo = counter('space.halo_exchange')
     with PlainTwinsRefused():
         for name, S, G, chains, records, shape in runs:
             t1 = time.perf_counter()
@@ -3445,7 +3452,7 @@ def phase_space_fleets(torch, card):
             require(stats_err <= 1e-5, f'S2 {name} {shape}: stats differ by {stats_err}')
             require(bad == 0, f'S2 {name} {shape}: the invariant is broken')
     launches = {k: f.launches for k, f in counters.items()}
-    launches['halo_exchanges'] = space.halo_exchange.calls - halo
+    launches['halo_exchanges'] = counter('space.halo_exchange') - halo
     say(f'  S2: {time.perf_counter() - t0!r} s (card: {card}); launches {launches}')
     require(all(launches[k] > 0 for k in ('slab', 'worm', 'worldline_worm', 'chunked_worm')),
             f'S2: a kernel of the space path never launched: {launches}')

@@ -34,6 +34,13 @@ import time
 
 import torch
 
+from .. import tracing
+
+
+def collectives():
+    """The cross-process calls this process has made (``distributed.collective``)."""
+    return tracing.counters().get('distributed.collective', 0)
+
 
 def card():
     """The card's name and power limit as ``nvidia-smi`` gives them, or why not."""
@@ -169,14 +176,14 @@ def audit_collectives(N=32, chains=64, steps=10, kappa=0.5, mesh=None, device='c
 
     def watch(records):
         for i in records:
-            seen.append(distributed.collective.calls)
+            seen.append(collectives())
             yield i
-        seen.append(distributed.collective.calls)
+        seen.append(collectives())
 
     sample_fleet(S, gv.NeighborhoodUpdate(S), chains=chains, steps=steps, seed=0, mesh=mesh,
                  progress=watch, keep_fields=False, device=device)
     return {'inside_records': seen[-1] - seen[0],
-            'after_records': distributed.collective.calls - seen[-1], 'records': steps,
+            'after_records': collectives() - seen[-1], 'records': steps,
             'shards': mesh.size, 'processes': distributed.world()}
 
 
@@ -188,23 +195,22 @@ def audit_space_collectives(N=32, space=4, kappa=0.5, W=2, device='cuda'):
     more than 0: the local updates run on the slabs."""
     import supervillain_tpu_torch as sv
     from ..generators import villain as gv
-    from ..parallel import distributed, sample_fleet
-    from ..parallel import space as spaced
+    from ..parallel import sample_fleet
     from ..parallel.mesh import chain_space_mesh
 
-    counters = {'halo_exchanges': spaced.halo_exchange, 'slice_gathers': spaced.gather_slices,
-                'chain_gathers': spaced.gather_chain, 'chain_scatters': spaced.scatter_chain}
-    before = {k: f.calls for k, f in counters.items()}
-    calls = distributed.collective.calls
+    names = {'halo_exchanges': 'space.halo_exchange', 'slice_gathers': 'space.gather_slices',
+             'chain_gathers': 'space.gather_chain', 'chain_scatters': 'space.scatter_chain',
+             'cross_process_calls': 'distributed.collective'}
+    before = tracing.counters()
     S = sv.Villain(sv.Lattice2D(N), kappa, W=W)
     device = torch.device(device)
     if device.type == 'cuda' and device.index is None:
         device = torch.device('cuda', torch.cuda.current_device())
     sample_fleet(S, gv.Hammer(S, fleet=True), chains=1, steps=1, seed=0,
                  mesh=chain_space_mesh(1, space, [device] * space), keep_fields=False)
-    counts = {k: f.calls - before[k] for k, f in counters.items()}
-    counts['cross_process_calls'] = distributed.collective.calls - calls
-    return counts | {'N': N, 'space': space, 'steps': 1}
+    after = tracing.counters()
+    return {k: after.get(name, 0) - before.get(name, 0) for k, name in names.items()} | {
+        'N': N, 'space': space, 'steps': 1}
 
 
 if __name__ == '__main__':

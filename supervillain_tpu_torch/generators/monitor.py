@@ -5,6 +5,9 @@ from __future__ import annotations
 
 import logging
 
+import torch
+
+from ..tracing import span
 from ..utils import Timer
 from .base import Generator
 
@@ -13,8 +16,10 @@ logger = logging.getLogger(__name__)
 
 class Logger(Generator):
     """Wrap a generator: time each step and send the elapsed time and the
-    step's inline observables to ``channel``.  The timer reads the host clock
-    around the call, which on a GPU is the time to queue the step's work."""
+    step's inline observables to ``channel``.  Each step runs in a
+    ``Logger.step`` span (:mod:`..tracing`).  With ``timer``, the host clock
+    is read after waiting for the card that holds the fields, before the
+    step and after it, so the time is the step's work, not its enqueue."""
 
     def __init__(self, generator, channel=logger.info, timer=True):
         self.generator = generator
@@ -35,11 +40,25 @@ class Logger(Generator):
         return self.generator.prepare(cfg)
 
     def step(self, generator, cfg, stats):
-        with Timer(self.channel if self.timer else None, f'{self.generator} step'):
-            cfg, stats, inline = self.generator.step(generator, cfg, stats)
-        if self.channel is not None:
-            self.channel(inline)
+        with span('Logger.step'):
+            if self.timer:
+                _synchronize(cfg)
+            with Timer(self.channel if self.timer else None, f'{self.generator} step'):
+                cfg, stats, inline = self.generator.step(generator, cfg, stats)
+                if self.timer:
+                    _synchronize(cfg)
+            if self.channel is not None:
+                self.channel(inline)
         return cfg, stats, inline
 
     def report(self, stats):
         return self.generator.report(stats)
+
+
+def _synchronize(cfg):
+    """Wait for the work queued on the cards that hold the fields ``cfg``: a
+    dict of tensors, or a list of them (a row's slabs on a space mesh)."""
+    parts = cfg if isinstance(cfg, list) else [cfg]
+    for device in {v.device for p in parts for v in p.values()
+                   if isinstance(v, torch.Tensor) and v.is_cuda}:
+        torch.cuda.synchronize(device)

@@ -36,6 +36,7 @@ import torch
 from . import calculus as calc
 from . import kernels, philox, shard
 from .lattice import Lattice, Lattice2D
+from .. import tracing
 from ..generators.base import metropolis, uniform_int_with_zero, zero_inflated_int
 
 TWO_PI = 2 * np.pi
@@ -70,6 +71,11 @@ RESIDENT_SHARED_BYTES = 232_448 - 1024
 CLUSTER_SIZES = (1, 2, 4, 8)
 RESIDENT_THREADS = 1024         # csrc/sweep.cu kResidentThreads
 STREAMING_THREADS = 256         # csrc/sweep.cu sv_sweeps
+
+
+#: The counters of a resident call's cycles (:func:`kernel_sweeps`), in the
+#: order of the columns of its ``cycles``.
+BARRIER_COUNTERS = ('sweep.villain.barrier_cycles', 'sweep.villain.cycles')
 
 
 class SweepPlan(NamedTuple):
@@ -341,7 +347,10 @@ def kernel_sweeps(phi, n, plan, *, kappa, W, interval_phi, interval_n, sweeps, p
     chain being ``chain0`` of the fleet.  ``cycles``, a (B·k, 2)
     int64 tensor on the card, receives for each block of a resident call the
     clock cycles its thread 0 waited at cluster barriers and its cycles in
-    all."""
+    all.  While a ``torch.profiler`` records, a resident call given none
+    makes its own; a resident call's cycles, summed over its blocks on the
+    card, count in ``sweep.villain.barrier_cycles`` and
+    ``sweep.villain.cycles`` (:mod:`..tracing`)."""
     B, N = kernels.require_fields(phi, n)
     if N % 2 and plan.regime != 'table':
         raise ValueError(f'an odd N={N} needs the table plan, not {plan.regime!r}')
@@ -359,6 +368,8 @@ def kernel_sweeps(phi, n, plan, *, kappa, W, interval_phi, interval_n, sweeps, p
     stream = kernels.stream_handle(phi.device)
     with torch.cuda.device(phi.device):
         if plan.regime == 'resident':
+            if cycles is None and tracing.recording():
+                cycles = torch.empty((B * plan.cluster, 2), dtype=torch.int64, device=phi.device)
             if cycles is not None and (cycles.shape != (B * plan.cluster, 2)
                                        or cycles.dtype != torch.int64
                                        or cycles.device != phi.device):
@@ -379,6 +390,8 @@ def kernel_sweeps(phi, n, plan, *, kappa, W, interval_phi, interval_n, sweeps, p
                 None if colors is None else colors.data_ptr(), n_colors, *args, stream)
     kernels.check(code, f'neighborhood_sweeps ({plan.regime})')
     neighborhood_sweeps.launches += 1
+    if plan.regime == 'resident' and cycles is not None:
+        tracing.count_on_device(BARRIER_COUNTERS, cycles.sum(dim=0))
     per_site = sums / (N * N * sweeps)
     inline = {'ActionDensity': ((kappa / 2) * per_site[:, 0]).float(),
               'WindingSquared': per_site[:, 1].float()}

@@ -20,6 +20,8 @@ import os
 
 import torch
 
+from ..tracing import count
+
 
 def _dist():
     import torch.distributed as dist
@@ -78,13 +80,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None):
 
 def collective(fn, *args, **kwargs):
     """Call the cross-process function ``fn`` and count it in
-    ``collective.calls``."""
-    collective.calls += 1
+    ``distributed.collective``."""
+    count('distributed.collective')
     return fn(*args, **kwargs)
-
-
-#: Cross-process calls this process made through :func:`collective`.
-collective.calls = 0
 
 
 def all_gather(obj, group=None):

@@ -23,6 +23,7 @@ from ..ensemble import Ensemble
 from ..generators import KeepEvery
 from ..generators.base import host_stats, per_chain_stats
 from ..ops.shard import ShardGenerator
+from ..tracing import count, span
 from . import distributed
 from .mesh import ChainMesh, chain_mesh
 
@@ -176,9 +177,30 @@ def shard_generators(seed, shards, chains):
     return out
 
 
-def host(tensors):
-    """A dict of tensors as NumPy arrays."""
-    return {k: v.cpu().numpy() for k, v in tensors.items()}
+def host(tensors, bytes_counter=None):
+    """A dict of tensors as NumPy arrays, copied in a ``fleet.copy`` span.
+    Each copy from a card is a wait on it, counted in ``fleet.syncs``; the
+    bytes copied are counted in ``bytes_counter`` where one is named."""
+    with span('fleet.copy'):
+        out = {}
+        for k, v in tensors.items():
+            if v.is_cuda:
+                count('fleet.syncs')
+            out[k] = v.cpu().numpy()
+        if bytes_counter is not None:
+            count(bytes_counter, sum(a.nbytes for a in out.values()))
+        return out
+
+
+def wait(device):
+    """Wait, in a ``fleet.wait`` span, for the work queued on the current
+    stream of ``device``: a card's (counted in ``fleet.syncs``); nothing on
+    the CPU.  Before a shard's copies it parts the wait for its kernels from
+    the copies, which would wait at the first of them anyway."""
+    with span('fleet.wait'):
+        if device.type == 'cuda':
+            torch.cuda.current_stream(device).synchronize()
+            count('fleet.syncs')
 
 
 def join(parts, axis=0):
@@ -193,21 +215,24 @@ def gathered_fleet(action, mesh, shards, columns, final, stats, index, device):
     ``columns`` (steps, c, ...), ``final`` (c, ...) and the per-chain ``stats``
     (c,) are this process's, of the c chains of its ``shards`` (None where it
     holds none); where there are several processes they are gathered in one
-    collective.  The stats are then summed over all chains."""
-    local = {'columns': columns, 'final': final, 'stats': stats, 'kinds': mesh.kinds(),
-             'blocks': [(block.start, len(block)) for _, block in shards]}
-    parts = distributed.all_gather(local) if mesh.world > 1 else [local]
-    blocks = [b for p in parts for b in p['blocks'] if b[1]]
-    if [start for start, _ in blocks] != [sum(c for _, c in blocks[:i]) for i in range(len(blocks))]:
-        raise RuntimeError(f'the processes\' shards {blocks} do not tile the fleet: every '
-                           'process must list as many devices')
-    kinds = [k for p in parts for k in p['kinds']]
-    parts = [p for p in parts if p['final'] is not None]
-    columns = join([p['columns'] for p in parts], axis=1)
-    final = join([p['final'] for p in parts])
-    stats = {tag: join([p['stats'][tag] for p in parts]) for tag in parts[0]['stats']}
-    return Fleet(action, columns, host_stats(stats), final, index, device=device,
-                 mesh={'size': mesh.size, 'kinds': kinds})
+    collective.  The stats are then summed over all chains.  In a
+    ``fleet.gather`` span."""
+    with span('fleet.gather'):
+        local = {'columns': columns, 'final': final, 'stats': stats, 'kinds': mesh.kinds(),
+                 'blocks': [(block.start, len(block)) for _, block in shards]}
+        parts = distributed.all_gather(local) if mesh.world > 1 else [local]
+        blocks = [b for p in parts for b in p['blocks'] if b[1]]
+        starts = [sum(c for _, c in blocks[:i]) for i in range(len(blocks))]
+        if [start for start, _ in blocks] != starts:
+            raise RuntimeError(f'the processes\' shards {blocks} do not tile the fleet: every '
+                               'process must list as many devices')
+        kinds = [k for p in parts for k in p['kinds']]
+        parts = [p for p in parts if p['final'] is not None]
+        columns = join([p['columns'] for p in parts], axis=1)
+        final = join([p['final'] for p in parts])
+        stats = {tag: join([p['stats'][tag] for p in parts]) for tag in parts[0]['stats']}
+        return Fleet(action, columns, host_stats(stats), final, index, device=device,
+                     mesh={'size': mesh.size, 'kinds': kinds})
 
 
 def sample_fleet(action, generator, *, chains, steps, thin=1, seed=0, mesh=None, start='cold',

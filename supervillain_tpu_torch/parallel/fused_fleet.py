@@ -10,7 +10,11 @@ shard's fields; every call advances all chains ``thin`` sweeps (and, with
 call.  On a GPU the calls run the CUDA kernels; on the CPU the plain versions.
 With a chain mesh (:mod:`.mesh`) each shard runs its block of chains on its
 device, its kernels counting their Philox streams from its first chain's
-global index, so the fleet equals the unsharded one bit for bit.
+global index, so the fleet equals the unsharded one bit for bit.  A call's
+host work runs in the spans of :mod:`..tracing` (``fleet.call``, and inside
+it ``fleet.init``, a ``fleet.record`` a record and ``fleet.finish``), which a
+recording ``torch.profiler`` keeps; its records, copies and waits are counted
+there whether or not one records.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from ..ops.shard import ShardGenerator
 from ..ops.sweep import neighborhood_sweeps
 from ..ops.worldline import action_density, worldline_sweeps
 from ..ops.worldline_hammer import worldline_hammer_sweeps
-from .fleet import gathered_fleet, host, join
+from ..tracing import count, span
+from .fleet import gathered_fleet, host, join, wait
 from .mesh import ChainMesh
 
 #: Truncated-worm fraction above which inline worm histograms should not be
@@ -137,47 +142,62 @@ def sample_fused_fleet(action, *, chains, steps, thin=10, seed=0, interval_phi=n
         per_sweep = L.sites
         tag = 'NeighborhoodUpdate'
 
-    shards = mesh.shards(chains)
-    fields, accepted, rngs = [], [], []
-    for d, block in shards:
-        fdt, idt = field_dtypes(d)
-        B = len(block)
-        if worldline:
-            vdt = fdt if action.W == float('inf') else idt
-            fields.append((torch.zeros((B, 2, N, N), dtype=idt, device=d),
-                           torch.zeros((B, 1, N, N), dtype=vdt, device=d)))
-        else:
-            fields.append((torch.zeros((B, 1, N, N), dtype=fdt, device=d),
-                           torch.zeros((B, 2, N, N), dtype=idt, device=d)))
-        accepted.append(torch.zeros(B, dtype=torch.float64, device=d))
-        # Each shard's host generator, seeded alike, draws what the whole
-        # fleet's would: the same kernel seeds, and the fleet's rows.
-        rngs.append(ShardGenerator(torch.Generator().manual_seed(int(seed)), block.start, chains))
+    with span('fleet.call'):
+        with span('fleet.init'):
+            shards = mesh.shards(chains)
+            fields, accepted, rngs = [], [], []
+            for d, block in shards:
+                fdt, idt = field_dtypes(d)
+                B = len(block)
+                if worldline:
+                    vdt = fdt if action.W == float('inf') else idt
+                    fields.append((torch.zeros((B, 2, N, N), dtype=idt, device=d),
+                                   torch.zeros((B, 1, N, N), dtype=vdt, device=d)))
+                else:
+                    fields.append((torch.zeros((B, 1, N, N), dtype=fdt, device=d),
+                                   torch.zeros((B, 2, N, N), dtype=idt, device=d)))
+                accepted.append(torch.zeros(B, dtype=torch.float64, device=d))
+                # Each shard's host generator, seeded alike, draws what the whole
+                # fleet's would: the same kernel seeds, and the fleet's rows.
+                rngs.append(ShardGenerator(torch.Generator().manual_seed(int(seed)), block.start,
+                                           chains))
 
-    columns = None
-    iterator = range(steps) if progress is None else progress(range(steps))
-    for i in iterator:
-        inlines = []
-        for k, rng in enumerate(rngs):
-            a, b, acc, inline = launch(*fields[k], rng)
-            fields[k] = (a, b)
-            accepted[k] = accepted[k] + acc.to(torch.float64)
-            inlines.append(inline | (dict(zip(names, fields[k])) if keep_fields else {}))
-        record = join([host(inline) for inline in inlines])
-        if columns is None:
-            columns = {k: np.empty((steps,) + v.shape, dtype=v.dtype) for k, v in record.items()}
-        for k, v in record.items():
-            columns[k][i] = v
+        columns = None
+        iterator = range(steps) if progress is None else progress(range(steps))
+        for i in iterator:
+            with span('fleet.record'):
+                count('fleet.records')
+                inlines = []
+                for k, rng in enumerate(rngs):
+                    with span('fleet.launch'):
+                        a, b, acc, inline = launch(*fields[k], rng)
+                        fields[k] = (a, b)
+                        accepted[k] = accepted[k] + acc.to(torch.float64)
+                    inlines.append(inline | (dict(zip(names, fields[k])) if keep_fields else {}))
+                parts = []
+                for (d, _), inline in zip(shards, inlines):
+                    wait(d)
+                    parts.append(host(inline, 'fleet.host_bytes'))
+                with span('fleet.store'):
+                    record = join(parts)
+                    if columns is None:
+                        columns = {k: np.empty((steps,) + v.shape, dtype=v.dtype)
+                                   for k, v in record.items()}
+                    for k, v in record.items():
+                        columns[k][i] = v
 
-    stats = {tag: join([host({'accepted': acc}) for acc in accepted])}
-    final = join([host(dict(zip(names, f))) for f in fields])
-    index = thin * (1 + np.arange(steps))
-    fleet = gathered_fleet(action, mesh, shards, columns, final, stats, index, mesh.devices[0])
-    total = fleet.stats[tag]['accepted']
-    proposals = chains * per_sweep * thin * steps
-    fleet.stats[tag] = {'accepted': total, 'proposed': float(proposals),
-                        'acceptance': total / proposals, 'sweeps': float(thin * steps)}
-    if fleet.columns is not None and 'Worm_Truncated' in fleet.columns:
-        check_truncation_budget(fleet.columns['Worm_Truncated'].sum(), worms * steps * chains,
-                                context='sample_fused_fleet: ')
-    return fleet
+        with span('fleet.finish'):
+            stats = {tag: join([host({'accepted': acc}) for acc in accepted])}
+            with span('fleet.final'):
+                final = join([host(dict(zip(names, f)), 'fleet.final_bytes') for f in fields])
+            index = thin * (1 + np.arange(steps))
+            fleet = gathered_fleet(action, mesh, shards, columns, final, stats, index,
+                                   mesh.devices[0])
+            total = fleet.stats[tag]['accepted']
+            proposals = chains * per_sweep * thin * steps
+            fleet.stats[tag] = {'accepted': total, 'proposed': float(proposals),
+                                'acceptance': total / proposals, 'sweeps': float(thin * steps)}
+            if fleet.columns is not None and 'Worm_Truncated' in fleet.columns:
+                check_truncation_budget(fleet.columns['Worm_Truncated'].sum(),
+                                        worms * steps * chains, context='sample_fused_fleet: ')
+        return fleet

@@ -54,6 +54,7 @@ from ..generators import KeepEvery, Logger, Sequentially
 from ..generators.base import Generator, PassUpdate, host_stats, per_chain_stats
 from ..generators.villain import CohomologyUpdate
 from ..ops.shard import Slab, SlabGenerator
+from ..tracing import count
 from . import distributed
 from .mesh import ChainSpaceMesh, fleet_sharding, slab_width
 
@@ -147,8 +148,9 @@ def halo_exchange(row, states):
     """Pad each local slab's fields with :data:`GHOST` columns of its
     neighbours' own columns on either side (the torus wraps: slab 0's left
     neighbour is the last).  ``states``: a dict a slab, its fields padded or
-    not; other entries pass through.  Counted in ``halo_exchange.calls``."""
-    halo_exchange.calls += 1
+    not; other entries pass through.  Counted in ``space.halo_exchange``
+    (:mod:`..tracing`)."""
+    count('space.halo_exchange')
     own = [{k: _own(v, slab) for k, v in st.items() if _spatial(v, slab)}
            for (_, _, slab), st in zip(row.local, states)]
     edges = row.share({s: ({k: v[..., :GHOST] for k, v in o.items()},
@@ -162,15 +164,11 @@ def halo_exchange(row, states):
     return out
 
 
-#: Halo exchanges made (each pads every local slab of one row).
-halo_exchange.calls = 0
-
-
 def gather_chain(row, cfgs):
     """The row's chains whole, on the column-0 slab's device (None where this
     process does not hold it): the slabs' columns joined in order.  Counted
-    in ``gather_chain.calls``."""
-    gather_chain.calls += 1
+    in ``space.gather_chain`` (:mod:`..tracing`)."""
+    count('space.gather_chain')
     shared = row.share({s: cfg for (s, _, _), cfg in zip(row.local, cfgs)})
     if not row.holds_col0:
         return None
@@ -179,16 +177,12 @@ def gather_chain(row, cfgs):
             if _spatial(v, slab) else v for k, v in shared[0].items()}
 
 
-#: Gathers of a row's chains to its column-0 slab.
-gather_chain.calls = 0
-
-
 def scatter_chain(row, result):
     """Each local slab's columns of the column-0 slab's ``result`` (the
     gathered step's fields, stats, inline values and generator state), and
     the stats and inline values on the row's device.  Counted in
-    ``scatter_chain.calls``."""
-    scatter_chain.calls += 1
+    ``space.scatter_chain`` (:mod:`..tracing`)."""
+    count('space.scatter_chain')
     payload = {}
     if result is not None:
         cfg, stats, inline, state = result
@@ -200,10 +194,6 @@ def scatter_chain(row, result):
     pieces, stats, inline, state = row.share(payload)['scattered']
     cfgs = [_to(pieces[s], device) for s, device, _ in row.local]
     return cfgs, _to(stats, row.device), _to(inline, row.device), state
-
-
-#: Scatters of a gathered step's result back to the row's slabs.
-scatter_chain.calls = 0
 
 
 def pass_step(update, generators, cfgs, stats):
@@ -231,15 +221,12 @@ def pass_step(update, generators, cfgs, stats):
 def gather_slices(row, pieces):
     """Every slab's parts of the slices x_μ = 0 (``pieces``: a list over μ
     for each local slab), joined in slab order into the whole slices on each
-    local slab's device.  Counted in ``gather_slices.calls``."""
-    gather_slices.calls += 1
+    local slab's device.  Counted in ``space.gather_slices``
+    (:mod:`..tracing`)."""
+    count('space.gather_slices')
     shared = row.share({s: p for (s, _, _), p in zip(row.local, pieces)})
     return [[torch.cat([_to(shared[s][mu], device) for s in range(row.space)], dim=1)
              for mu in range(len(shared[0]))] for _, device, _ in row.local]
-
-
-#: Gathers of the slices x_μ = 0 of a row's chains to its slabs.
-gather_slices.calls = 0
 
 
 def slice_step(update, generators, cfgs, stats):

@@ -1,0 +1,85 @@
+"""Spans and counters of the port's own work.
+
+:func:`span` names a stretch of host time.  While a ``torch.profiler``
+records, it is ``torch.profiler.record_function(name)``: the span lands in
+the profiler's trace, on one clock with the device's operations there, is
+kept in memory by the profiler and written out when its owner exports the
+trace.  Spans opened inside one another on the host thread nest in the
+trace, so each span's parent is the span that held it (a record's spans lie
+inside its ``fleet.record``, a call's inside its ``fleet.call``).  With no
+profiler recording, :func:`span` returns one shared no-op context manager:
+the cost is one flag check.
+
+:func:`count` adds to process-wide integer counters, always on.
+:func:`count_on_device` adds a tensor of counts to accumulators kept on the
+tensor's device, so that counting never waits for the device.
+:func:`counters` returns a snapshot of both (reading the device accumulators
+synchronises their devices) and :func:`reset` clears them.
+
+The names in use, and what counts them:
+
+- ``fleet.records``, ``fleet.host_bytes``, ``fleet.final_bytes``,
+  ``fleet.syncs``: the fleet driver (:mod:`.parallel.fleet`,
+  :mod:`.parallel.fused_fleet`);
+- ``sweep.villain.barrier_cycles``, ``sweep.villain.cycles``: the resident
+  Villain sweep's thread 0 of each block, clock cycles waited at cluster
+  barriers and in all, counted only while a profiler records
+  (:func:`.ops.sweep.kernel_sweeps`);
+- ``space.halo_exchange``, ``space.gather_chain``, ``space.scatter_chain``,
+  ``space.gather_slices`` (:mod:`.parallel.space`) and
+  ``distributed.collective`` (:mod:`.parallel.distributed`): calls.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from collections import Counter
+
+import torch
+
+_OFF = contextlib.nullcontext()
+_host = Counter()
+#: (names, device) -> int64 tensor of one accumulator a name, on the device.
+_device = {}
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` records on this thread."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def span(name):
+    """A context manager that names the host time inside it ``name`` in the
+    trace of a recording profiler, and does nothing otherwise."""
+    return torch.profiler.record_function(name) if recording() else _OFF
+
+
+def count(name, n=1):
+    """Add ``n`` to the counter ``name``."""
+    _host[name] += n
+
+
+def count_on_device(names, values):
+    """Add ``values``, a tensor of one integer a name of ``names``, to their
+    accumulators on its device, without waiting for it."""
+    key = (tuple(names), values.device)
+    if key in _device:
+        _device[key].add_(values)
+    else:
+        _device[key] = values.to(torch.int64, copy=True)
+
+
+def counters():
+    """Every counter's value: the host's and, read from their devices, the
+    device accumulators', summed by name."""
+    out = Counter(_host)
+    for (names, _), values in _device.items():
+        for name, value in zip(names, values.tolist()):
+            out[name] += value
+    return dict(out)
+
+
+def reset():
+    """Clear every counter."""
+    _host.clear()
+    _device.clear()

@@ -32,6 +32,7 @@ from supervillain_tpu.parallel import sample_fleet as jax_sample_fleet
 from supervillain_tpu.parallel.mesh import chain_space_mesh as jax_chain_space_mesh
 from supervillain_tpu_torch.generators import villain as tv, worldline as tw
 from supervillain_tpu_torch.ops import calculus as tcalc
+from supervillain_tpu_torch import tracing
 from supervillain_tpu_torch.ops import shard
 from supervillain_tpu_torch.ops.sweep import (KernelSweepDraws, SweepDraws, color_pass,
                                               plain_slab_pass, slab_pass, slab_residual)
@@ -39,6 +40,13 @@ from supervillain_tpu_torch.parallel import (chain_mesh, chain_space_mesh, fleet
                                              sample_fleet, sample_fused_fleet, space)
 
 MESHES = [(1, 2), (2, 2), (1, 4)]
+
+
+def calls(name):
+    """The calls counted in ``name`` by the port's registry."""
+    return tracing.counters().get(name, 0)
+
+
 CASES = {
     # κ = 0.1: the links' n move (at κ = 0.5 and W=2 they stay 0 over 3 records).
     'villain-hammer-w2': (lambda: tsv.Villain(tsv.Lattice2D(8), 0.1, W=2),
@@ -115,11 +123,11 @@ def assert_invariants(S, fleet):
 @pytest.mark.parametrize('mesh', MESHES, ids=lambda m: f'{m[0]}x{m[1]}')
 @pytest.mark.parametrize('case', sorted(CASES))
 def test_space_sharded_fleet_is_the_unsharded_one(case, mesh):
-    before = space.halo_exchange.calls
+    before = calls('space.halo_exchange')
     S, fleet = run(case, cpu_space_mesh(*mesh))
     assert_same_fields(fleet, unsharded(case))
     assert_invariants(S, fleet)
-    assert space.halo_exchange.calls > before
+    assert calls('space.halo_exchange') > before
     assert fleet.mesh == {'size': mesh[0] * mesh[1], 'kinds': ['cpu'] * (mesh[0] * mesh[1]),
                           'shape': mesh}
 
@@ -128,15 +136,15 @@ def test_fields_move_and_the_worms_run_gathered():
     """The records change the fields (not a cold start carried through), the
     Hammer's worm runs on the gathered chain (a gather and a scatter a step)
     and CohomologyUpdate gathers its slices (one gather a step)."""
-    gathers, scatters = space.gather_chain.calls, space.scatter_chain.calls
-    slices = space.gather_slices.calls
+    gathers, scatters = calls('space.gather_chain'), calls('space.scatter_chain')
+    slices = calls('space.gather_slices')
     S, fleet = run('villain-hammer-w2', cpu_space_mesh(1, 2))
     assert np.any(fleet.columns['n'] != 0) and np.any(fleet.columns['phi'] != 0)
     assert fleet.stats['ClassicWorm']['accepted'] > 0
     assert fleet.stats['CohomologyUpdate']['proposed'] > 0
-    assert space.gather_chain.calls - gathers == 3
-    assert space.scatter_chain.calls - scatters == 3
-    assert space.gather_slices.calls - slices == 3
+    assert calls('space.gather_chain') - gathers == 3
+    assert calls('space.scatter_chain') - scatters == 3
+    assert calls('space.gather_slices') - slices == 3
     _, fleet = run('villain-cohomology', cpu_space_mesh(1, 2))
     assert fleet.stats['CohomologyUpdate']['accepted'] > 0
 
@@ -281,7 +289,7 @@ def _rank(rank, init, out):
     distributed.initialize(init, 2, rank)
     mesh = chain_space_mesh(1, 2, ['cpu'])
     result = _two_rank_runs(mesh)
-    result['halo exchanges'] = space.halo_exchange.calls
+    result['halo exchanges'] = calls('space.halo_exchange')
     with open(os.path.join(out, f'rank{rank}.pkl'), 'wb') as f:
         pickle.dump(result, f)
     torch.distributed.destroy_process_group()
