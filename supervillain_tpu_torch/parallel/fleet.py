@@ -33,7 +33,14 @@ logger = logging.getLogger(__name__)
 class Fleet:
     """Draws from many independent chains: columns of shape (kept, chains, ...),
     per-chain final configurations, pooled statistics.  ``mesh`` records where
-    the chains ran: the mesh's ``size`` and each shard's device ``kinds``."""
+    the chains ran: the mesh's ``size`` and each shard's device ``kinds``.
+
+    A fleet of :func:`.fused_fleet.sample_fused_fleet` that ran on cards holds
+    its columns and final fields as NumPy views of page-locked host memory,
+    which the arrays keep alive: it returns to the process's pinned cache when
+    the fleet and every view of it are freed, and serves the next call of the
+    same shape.  A fleet kept is never written by a later call, and keeps its
+    page-locked memory: a user who keeps many fleets keeps all of theirs."""
 
     def __init__(self, action, columns, stats, final, index, weight=None, device='cuda',
                  mesh=None):
@@ -192,11 +199,70 @@ def host(tensors, bytes_counter=None):
         return out
 
 
+def host_buffer(shape, dtype):
+    """``(tensor, pinned)``: an uninitialised host tensor for copies from a card
+    to land in, page-locked (``pinned``) where it can be.  Page-locked memory
+    comes from the process's pinned cache, which gets back the block of a freed
+    tensor and hands it out again at the next request of its size; what the
+    cache had to pin anew is counted in ``fleet.pinned_new_bytes``.  Where
+    pinning fails (page-locked memory runs out) the tensor is pageable, counted
+    in ``fleet.pinned_fallbacks``."""
+    before = _pinned_bytes_owned()
+    try:
+        tensor = torch.empty(shape, dtype=dtype, pin_memory=True)
+    except RuntimeError:
+        count('fleet.pinned_fallbacks')
+        return torch.empty(shape, dtype=dtype), False
+    count('fleet.pinned_new_bytes', _pinned_bytes_owned() - before)
+    return tensor, True
+
+
+def _pinned_bytes_owned():
+    """Bytes the process's pinned cache has ever pinned."""
+    return torch.cuda.host_memory_stats().get('allocated_bytes.allocated', 0)
+
+
+class Landing:
+    """Host arrays that copies of the cards' tensors land in, one a name of
+    ``like`` (a shard's tensors), of shape ``lead`` + the tensor's shape past
+    its chain axis and of its dtype: page-locked where they can be
+    (:func:`host_buffer`)."""
+
+    def __init__(self, like, lead):
+        self.buffers = {k: host_buffer(tuple(lead) + tuple(v.shape[1:]), v.dtype)
+                        for k, v in like.items()}
+
+    def land(self, tensors, start, row=None, bytes_counter=None):
+        """Queue, in a ``fleet.copy`` span, the copy of each of a shard's
+        ``tensors`` into its array's chains from ``start`` on (in row ``row``
+        where one is given), on the tensor's current stream.  A copy into
+        page-locked memory returns at once, one into pageable memory when it
+        is done (counted in ``fleet.syncs``).  The bytes copied are counted in
+        ``bytes_counter`` where one is named, and those of them that land in
+        page-locked memory in ``fleet.pinned_bytes`` too."""
+        with span('fleet.copy'):
+            for k, v in tensors.items():
+                buffer, pinned = self.buffers[k]
+                destination = (buffer if row is None else buffer[row])[start:start + len(v)]
+                destination.copy_(v, non_blocking=True)
+                if not pinned and v.is_cuda:
+                    count('fleet.syncs')
+                if bytes_counter is not None:
+                    count(bytes_counter, destination.nbytes)
+                    if pinned:
+                        count('fleet.pinned_bytes', destination.nbytes)
+
+    def arrays(self):
+        """The arrays as NumPy views, which keep their host memory alive."""
+        return {k: buffer.numpy() for k, (buffer, _) in self.buffers.items()}
+
+
 def wait(device):
     """Wait, in a ``fleet.wait`` span, for the work queued on the current
     stream of ``device``: a card's (counted in ``fleet.syncs``); nothing on
-    the CPU.  Before a shard's copies it parts the wait for its kernels from
-    the copies, which would wait at the first of them anyway."""
+    the CPU.  Before a shard's :func:`host` copies it parts the wait for its
+    kernels from the copies, which would wait at the first of them anyway;
+    after its :meth:`Landing.land` copies it waits for its kernels and copies."""
     with span('fleet.wait'):
         if device.type == 'cuda':
             torch.cuda.current_stream(device).synchronize()

@@ -14,7 +14,10 @@ global index, so the fleet equals the unsharded one bit for bit.  A call's
 host work runs in the spans of :mod:`..tracing` (``fleet.call``, and inside
 it ``fleet.init``, a ``fleet.record`` a record and ``fleet.finish``), which a
 recording ``torch.profiler`` keeps; its records, copies and waits are counted
-there whether or not one records.
+there whether or not one records.  On cards each copy to the host is queued on
+its shard's stream right after the shard's launch and lands in page-locked
+memory that is the returned fleet's own column or final field
+(:class:`.fleet.Landing`); a record then waits once a shard.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from ..ops.sweep import neighborhood_sweeps
 from ..ops.worldline import action_density, worldline_sweeps
 from ..ops.worldline_hammer import worldline_hammer_sweeps
 from ..tracing import count, span
-from .fleet import gathered_fleet, host, join, wait
+from .fleet import Landing, gathered_fleet, host, join, wait
 from .mesh import ChainMesh
 
 #: Truncated-worm fraction above which inline worm histograms should not be
@@ -87,6 +90,29 @@ def _worldline_launch(action, *, thin, worms, max_worm_moves):
     return launch
 
 
+def lands_pinned(shards):
+    """Whether a fleet's copies land in page-locked columns: where every shard
+    is on a card."""
+    return all(d.type == 'cuda' for d, _ in shards)
+
+
+def _store(columns, i, steps, shards, inlines):
+    """Record ``i`` of CPU shards: each shard's inline tensors copied to NumPy
+    after its wait, joined over the shards and written into ``columns``
+    (``(steps, chains, ...)`` arrays, made at the first record); returns them."""
+    parts = []
+    for (d, _), inline in zip(shards, inlines):
+        wait(d)
+        parts.append(host(inline, 'fleet.host_bytes'))
+    with span('fleet.store'):
+        record = join(parts)
+        if columns is None:
+            columns = {k: np.empty((steps,) + v.shape, dtype=v.dtype) for k, v in record.items()}
+        for k, v in record.items():
+            columns[k][i] = v
+    return columns
+
+
 def sample_fused_fleet(action, *, chains, steps, thin=10, seed=0, interval_phi=np.pi,
                        interval_n=1, p_n=None, keep_fields=False, progress=None, worms=0,
                        max_worm_moves='auto', mesh=None, device='cuda'):
@@ -113,7 +139,14 @@ def sample_fused_fleet(action, *, chains, steps, thin=10, seed=0, interval_phi=n
     ``mesh.size``.  Every shard's calls are launched before any record is read
     back; no process talks to another until the records are done, and then
     every process returns the same :class:`Fleet`, in global chain order,
-    equal bit for bit to the unsharded one."""
+    equal bit for bit to the unsharded one.
+
+    On cards the fleet's columns and final fields are NumPy views of
+    page-locked host memory, which every copy from a card lands in directly.
+    That memory returns to the process's pinned cache when the fleet is freed,
+    and the next call of the same shape takes it from there without pinning
+    anew; a user who keeps many fleets keeps all their page-locked memory.
+    Where pinning fails, a buffer is pageable and its copies wait."""
     worldline = isinstance(action, Worldline)
     if not (worldline or isinstance(action, Villain)):
         raise ValueError('sample_fused_fleet drives a Villain or a Worldline action')
@@ -162,6 +195,11 @@ def sample_fused_fleet(action, *, chains, steps, thin=10, seed=0, interval_phi=n
                 rngs.append(ShardGenerator(torch.Generator().manual_seed(int(seed)), block.start,
                                            chains))
 
+        # CPU shards keep the copy, join and store (there is no card to pin
+        # host memory for), so their spans and counts are unchanged.
+        pinned = lands_pinned(shards)
+        offsets = [block.start - shards[0][1].start for _, block in shards]
+        local = sum(len(block) for _, block in shards)
         columns = None
         iterator = range(steps) if progress is None else progress(range(steps))
         for i in iterator:
@@ -174,22 +212,36 @@ def sample_fused_fleet(action, *, chains, steps, thin=10, seed=0, interval_phi=n
                         fields[k] = (a, b)
                         accepted[k] = accepted[k] + acc.to(torch.float64)
                     inlines.append(inline | (dict(zip(names, fields[k])) if keep_fields else {}))
-                parts = []
-                for (d, _), inline in zip(shards, inlines):
-                    wait(d)
-                    parts.append(host(inline, 'fleet.host_bytes'))
-                with span('fleet.store'):
-                    record = join(parts)
-                    if columns is None:
-                        columns = {k: np.empty((steps,) + v.shape, dtype=v.dtype)
-                                   for k, v in record.items()}
-                    for k, v in record.items():
-                        columns[k][i] = v
+                    if pinned:
+                        if k == 0:
+                            with span('fleet.store'):
+                                if columns is None:
+                                    columns = Landing(inlines[0], (steps, local))
+                        columns.land(inlines[k], offsets[k], i, 'fleet.host_bytes')
+                if pinned:
+                    for d, _ in shards:
+                        wait(d)
+                else:
+                    columns = _store(columns, i, steps, shards, inlines)
 
         with span('fleet.finish'):
-            stats = {tag: join([host({'accepted': acc}) for acc in accepted])}
-            with span('fleet.final'):
-                final = join([host(dict(zip(names, f)), 'fleet.final_bytes') for f in fields])
+            if pinned:
+                with span('fleet.final'):
+                    final = Landing(dict(zip(names, fields[0])), (local,))
+                    stats = Landing({'accepted': accepted[0]}, (local,))
+                    for k, f in enumerate(fields):
+                        final.land(dict(zip(names, f)), offsets[k],
+                                   bytes_counter='fleet.final_bytes')
+                        stats.land({'accepted': accepted[k]}, offsets[k])
+                    for d, _ in shards:
+                        wait(d)
+                columns = None if columns is None else columns.arrays()
+                final, stats = final.arrays(), {tag: stats.arrays()}
+            else:
+                stats = {tag: join([host({'accepted': acc}) for acc in accepted])}
+                with span('fleet.final'):
+                    final = join([host(dict(zip(names, f)), 'fleet.final_bytes')
+                                  for f in fields])
             index = thin * (1 + np.arange(steps))
             fleet = gathered_fleet(action, mesh, shards, columns, final, stats, index,
                                    mesh.devices[0])

@@ -21,6 +21,12 @@ The names in use, and what counts them:
 - ``fleet.records``, ``fleet.host_bytes``, ``fleet.final_bytes``,
   ``fleet.syncs``: the fleet driver (:mod:`.parallel.fleet`,
   :mod:`.parallel.fused_fleet`);
+- ``fleet.pinned_bytes`` (the bytes of ``fleet.host_bytes`` and
+  ``fleet.final_bytes`` that landed in page-locked memory),
+  ``fleet.pinned_new_bytes`` (page-locked memory the process's pinned cache
+  had to pin anew for them) and ``fleet.pinned_fallbacks`` (buffers left
+  pageable where pinning failed): the fused fleet on cards
+  (:class:`.parallel.fleet.Landing`);
 - ``sweep.villain.barrier_cycles``, ``sweep.villain.cycles``: the resident
   Villain sweep's thread 0 of each block, clock cycles waited at cluster
   barriers and in all, counted only while a profiler records

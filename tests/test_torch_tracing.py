@@ -221,7 +221,8 @@ def test_on_the_card_a_record_waits_once_a_shard_and_once_a_column(cuda):
     S = tsv.Villain(tsv.Lattice2D(8), 0.5, W=1)
     f = tsv.sample_fused_fleet(S, chains=8, steps=STEPS, thin=1, worms=1,
                                mesh=chain_mesh(['cuda:0'] * 2))
-    columns, shards = len(f.columns), 2
-    # A wait and a copy a column a shard a record; the stats' and the two
-    # final fields' copies a shard.
-    assert tracing.counters()['fleet.syncs'] == STEPS * shards * (1 + columns) + 3 * shards
+    shards = 2
+    # The copies land in page-locked columns and wait on nothing: a wait a
+    # shard a record, and a wait a shard for the final fields and the stats.
+    assert len(f.columns) > 1
+    assert tracing.counters()['fleet.syncs'] == STEPS * shards + shards
