@@ -21,3 +21,13 @@ def base_name(name):
 def templated(name):
     """Whether a kernel's name carries template arguments."""
     return '<' in signature(name)
+
+
+#: What names PyTorch's own kernels in a trace: the generic path's updates,
+#: draws and sums, none of the program's hand-written kernels.
+NATIVE = 'at::native'
+
+
+def native(name):
+    """Whether a kernel is one of PyTorch's own."""
+    return NATIVE in name

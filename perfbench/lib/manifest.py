@@ -4,8 +4,9 @@
 metrics; each has files of its own under ``perfbench/``, which this module
 finds by those names:
 
-- ``configs/<config>.json``: the configuration (the action and its
-  precision), with its plain reference ``reference/<reference>.py``;
+- ``configs/<config>.json``: the configuration (the action, its D and its
+  precision), with its plain reference ``reference/<reference>.py``, which a
+  traffic may replace by its own ``"reference"``;
 - ``workloads/<traffic>.json``: the traffic mix, the parameters of the fleet
   calls that the window drives;
 - ``metrics/<metric>.py``: the reader of one per-layer metric;
@@ -63,6 +64,9 @@ def counts(kernel):
     return _load(BENCH / 'counts' / f'{kernel}.py', f'perfbench_count_{kernel}')
 
 
-def reference(config):
-    """The plain reference module that the configuration names."""
-    return importlib.import_module(f"perfbench.reference.{config['reference']}")
+def reference(config, traffic=None):
+    """The plain reference module that the traffic names, or else the
+    configuration (a traffic of another driver than the configuration's
+    reference replays names its own)."""
+    name = (traffic or {}).get('reference', config['reference'])
+    return importlib.import_module(f'perfbench.reference.{name}')

@@ -37,7 +37,7 @@ def program_reading(torch, sv, S, mesh, config, traffic, seed, device):
     kept = run.retain(fleet, 0, seed, traffic, window)
     del fleet
     t0 = time.perf_counter()
-    columns, final = run.replay(torch, config, traffic, kept, run_device(device),
+    columns, final = run.replay(config, traffic, kept, run_device(device),
                                 torch.float32)
     parted, observed = verdict.partings(kept['columns'], columns, kept['final'], final)
     return {'seed': seed, 'kind': 'program', **verdict.shares(parted), 'parted': parted,
@@ -49,8 +49,8 @@ def control_reading(torch, config, traffic, seed, device):
     chains = run.sample(seed, 0, traffic['chains'], traffic['check_chains'])
     kept = {'call': 0, 'seed': run.call_seed(seed, 0), 'chains': chains}
     t0 = time.perf_counter()
-    low_columns, low_final = run.replay(torch, config, traffic, kept, device, torch.bfloat16)
-    columns, final = run.replay(torch, config, traffic, kept, device, torch.float32)
+    low_columns, low_final = run.replay(config, traffic, kept, device, torch.bfloat16)
+    columns, final = run.replay(config, traffic, kept, device, torch.float32)
     parted, observed = verdict.partings(low_columns, columns, low_final, final)
     return {'seed': seed, 'kind': 'control bfloat16', **verdict.shares(parted), 'parted': parted,
             'chain_records': observed, 'chains': chains, 'seconds': time.perf_counter() - t0}
@@ -66,7 +66,7 @@ def main(argv=None, device='cuda', overrides=None, out=sys.stdout):
     ap.add_argument('--seeds', type=int, nargs=2, default=(0, 0))
     ap.add_argument('--control', type=int, nargs=2, default=(0, 0))
     args = ap.parse_args(argv)
-    _, _, config, traffic = manifest.cell(args.workload)
+    entry, _, config, traffic = manifest.cell(args.workload)
     traffic = dict(traffic, **(overrides or {}))
     import torch
     if device == 'cuda' and not torch.cuda.is_available():
@@ -75,7 +75,7 @@ def main(argv=None, device='cuda', overrides=None, out=sys.stdout):
     if args.seeds[1]:
         sv = program.load(device)
         S = program.action(sv, config, traffic)
-        mesh = program.mesh(sv, traffic, device)
+        mesh = program.mesh(sv, traffic, device, entry['chips'])
         for seed in range(args.seeds[0], args.seeds[0] + args.seeds[1]):
             readings.append(program_reading(torch, sv, S, mesh, config, traffic, seed, device))
             print(json.dumps(readings[-1]), file=out, flush=True)

@@ -19,6 +19,8 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 
 #: XORed into a kernel seed to key the Worldline kernels.
 WORLDLINE_SALT = 0x243F6A8885A308D3
+#: XORed into a kernel seed to key the chunked worm's kernel.
+CHUNKED_SALT = 0x13198A2E03707344
 
 
 def key_of(seed: int):

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from . import philox
+from . import fused, philox
 
 TWO_PI = 2 * math.pi
 # The worm's plaquette moves (east, north, west, south) in (t, x), the link
@@ -257,3 +257,9 @@ def record(state, seeds, chains, traffic, dtype=None):
 
 
 FIELDS = ('phi', 'n')
+
+
+def replay(seed, chains, traffic, device, dtype):
+    """One call's columns and final fields of the chains ``chains``
+    (:func:`.fused.replay`)."""
+    return fused.replay(cold, record, FIELDS, seed, chains, traffic, device, dtype)

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import philox
+from . import fused, philox
 
 #: Passes whose draws are made in one Philox evaluation, at most, and the
 #: draws' elements it may hold (each int64 word 8 bytes).
@@ -270,3 +270,9 @@ def record(state, seeds, chains, traffic, dtype):
 
 
 FIELDS = ('m', 'v')
+
+
+def replay(seed, chains, traffic, device, dtype):
+    """One call's columns and final fields of the chains ``chains``
+    (:func:`.fused.replay`)."""
+    return fused.replay(cold, record, FIELDS, seed, chains, traffic, device, dtype)

@@ -109,10 +109,9 @@ def retain(fleet, call, seed, traffic, window):
     """What the check and the counts keep of a completed call: its sampled
     chains' columns and final fields, and each record's worm moves."""
     columns = fleet.columns
-    lengths = columns.get('Worm_Length')
     chains = sample(seed, call, traffic['chains'], traffic['check_chains'])
-    if lengths is not None:
-        truncated = columns['Worm_Truncated']
+    if 'Worm_Length' in columns and 'Worm_Truncated' in columns:
+        lengths, truncated = columns['Worm_Length'], columns['Worm_Truncated']
         moves = lengths.sum(axis=1) + traffic['worms'] * lengths.shape[1] - truncated.sum(axis=1)
         for rec in window.records:
             if rec['call'] == call:
@@ -123,27 +122,12 @@ def retain(fleet, call, seed, traffic, window):
             'final': {k: np.array(v[chains]) for k, v in fleet.final.items()}}
 
 
-def replay(torch, config, traffic, kept, device, dtype):
-    """The plain reference's columns and final fields of a kept call's chains."""
-    ref = manifest.reference(config)
-    chains = torch.tensor(kept['chains'], dtype=torch.int64, device=device)
-    host = torch.Generator().manual_seed(kept['seed'])
-
-    def seeds():        # the program's kernel seeds, drawn as its fleet draws them
-        while True:
-            yield int(torch.randint(0, 2 ** 63 - 1, (), generator=host))
-
+def replay(config, traffic, kept, device, dtype):
+    """The plain reference's columns and final fields of a kept call's chains,
+    replayed from the call's fleet seed on ``device`` in ``dtype``."""
+    ref = manifest.reference(config, traffic)
     t = dict(traffic, max_worm_moves=program.max_worm_moves(traffic))
-    state = ref.cold(len(kept['chains']), traffic['L'], device, dtype)
-    stream, columns = seeds(), {}
-    for _ in range(traffic['records_per_call']):
-        state, inline = ref.record(state, stream, chains, t, dtype)
-        for k, v in inline.items():
-            columns.setdefault(k, []).append(v.float().cpu().numpy())
-    columns = {k: np.stack(v) for k, v in columns.items()}
-    final = {name: (f.float() if f.is_floating_point() else f).cpu().numpy()
-             for name, f in zip(ref.FIELDS, state)}
-    return columns, final
+    return ref.replay(kept['seed'], kept['chains'], t, device, dtype)
 
 
 def check(torch, config, traffic, kept, device, seed):
@@ -153,7 +137,7 @@ def check(torch, config, traffic, kept, device, seed):
         return False, {'calls_checked': {'value': 0, 'limit': 1}}
     call = kept[int(seed) % len(kept)]
     t0 = time.perf_counter()
-    columns, final = replay(torch, config, traffic, call, device, torch.float32)
+    columns, final = replay(config, traffic, call, device, torch.float32)
     seconds = time.perf_counter() - t0
     parted, observed = verdict.partings(call['columns'], columns, call['final'], final)
     print(f'check: call {call["call"]}, chains {call["chains"]}, parted at {parted}, '
@@ -191,8 +175,11 @@ def per_layer(trace, records, traffic, cards, cell):
     return out
 
 
-def end_to_end(records, window_s, setup_s, traffic, cell):
-    su = traffic['chains'] * traffic['L'] ** 2 * traffic['thin'] * len(records)
+def end_to_end(records, window_s, setup_s, config, traffic, cell):
+    """The cell's end-to-end metrics.  A record is ``thin`` sweeps of the
+    fused kernels, or ``thin`` generator steps of ``sample_fleet``: chains ·
+    L^D · thin site updates either way, so su/s compares runs of one driver."""
+    su = traffic['chains'] * traffic['L'] ** config['D'] * traffic['thin'] * len(records)
     values = {'site_updates_per_s': su / window_s, 'setup_s': setup_s,
               'record_s_p95': float(np.percentile([r['seconds'] for r in records], 95))}
     return {m['name']: {'value': values[m['name']], 'unit': m['unit']}
@@ -213,7 +200,7 @@ def run(cell, seed, seconds, traced, device='cuda', overrides=None):
                              f'{torch.cuda.device_count()} are visible')
     sv = program.load(device)
     S = program.action(sv, config, traffic)
-    mesh = program.mesh(sv, traffic, device)
+    mesh = program.mesh(sv, traffic, device, entry['chips'])
     cards = list(range(entry['chips'])) if device == 'cuda' else []
 
     def sync():
@@ -282,7 +269,7 @@ def run(cell, seed, seconds, traced, device='cuda', overrides=None):
         device_info['window_s'] = trace.window_s
         breakdown = tracelib.breakdown(trace)
     elif cards:
-        metrics = end_to_end(window.records, window_s, setup_s, traffic, cell)
+        metrics = end_to_end(window.records, window_s, setup_s, config, traffic, cell)
 
     if cards:
         torch.cuda.empty_cache()

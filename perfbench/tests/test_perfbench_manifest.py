@@ -51,7 +51,8 @@ def test_entries_keep_to_the_contract():
 def test_every_file_of_a_cell_is_found_by_name(cell):
     entry, config_entry, config, traffic = manifest.cell(cell)
     assert config['name'] == entry['config'] and config['reduced'] == config_entry['reduced']
-    assert manifest.reference(config).FIELDS
+    reference = manifest.reference(config, traffic)
+    assert reference.FIELDS and callable(reference.replay)
     for kernel in traffic['kernels']:
         counts = manifest.counts(kernel)
         assert callable(counts.count) and callable(counts.matches)
