@@ -2084,7 +2084,7 @@ def phase_general_worldline_worm(torch, card):
     # Time at the main path's D=4 (D3's κ=0.3 fleet), on a state moved by 20
     # steps of the generic Hammer, at the fleet cap.
     S = sv.Worldline(sv.Lattice(4, 8), 0.3, W=1)
-    cap = 8 * S.Lattice.sites
+    cap = gw.fleet_worm_cap(S.Lattice)
     fleet = sv.sample_fleet(S, gw.Hammer(S, fleet=True), chains=max(K2_TIMED_CHAINS), steps=1,
                             thin=20, seed=5, keep_fields=True)
     m_all = torch.as_tensor(fleet.final['m'], device='cuda')
@@ -2886,7 +2886,7 @@ def phase_worldline_general(torch, card):
     pulls = {}
     for D, kappa, W, on_cpu in D3_FLEETS:
         S = sv.Worldline(sv.Lattice(D, 8), kappa, W=W)
-        cap = 8 * S.Lattice.sites
+        cap = gw.fleet_worm_cap(S.Lattice)
         means = {}
         for device, chains in (('cuda', 32), ('cpu', 8))[:2 if on_cpu else 1]:
             for f in counters.values():
@@ -3513,6 +3513,7 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
         return 1
+    from supervillain_tpu_torch.generators import worldline as gw
     from supervillain_tpu_torch.ops import kernels
 
     card = phase_toolchain(torch, kernels)
@@ -3579,7 +3580,8 @@ def main():
                  'latency_floor_ms': k2[K2_TIMED_CHAINS[0]]['latency_floor_ms'],
                  'round_trip_ns_in_its_working_set': k2[K2_TIMED_CHAINS[0]]['round_trip_ns'],
                  'ns_per_move_of_the_longest_worm': k2[K2_TIMED_CHAINS[0]]['ns_per_move'],
-                 'shape': f'D=4, N=8, {K2_TIMED_CHAINS[0]} chains, κ=0.3, W=1, cap 8·sites',
+                 'shape': f'D=4, N=8, {K2_TIMED_CHAINS[0]} chains, κ=0.3, W=1, '
+                          f'cap {gw.FLEET_CAP_PER_SITE}·sites',
                  'plain_ms_capped_at': ODD_REPLAY_CAP, 'ms_at_that_cap': k2_capped_ms,
                  f'at_{K2_TIMED_CHAINS[1]}_chains': {
                      'ms': k2[K2_TIMED_CHAINS[1]]['ms'],

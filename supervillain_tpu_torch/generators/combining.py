@@ -10,13 +10,15 @@ from __future__ import annotations
 
 import torch
 
+from ..tracing import span
 from .base import Generator
 
 
 class Sequentially(Generator):
     """Compose generators into one step applied in order; stats merge (tags are
     de-duplicated as ``name#1``, ``name#2``, ...), inline observables union
-    (later generators win on clashes)."""
+    (later generators win on clashes).  Each sub-generator's step runs in a
+    span ``update.<name>`` (:func:`..tracing.span`)."""
 
     def __init__(self, generators):
         self.generators = tuple(generators)
@@ -57,7 +59,8 @@ class Sequentially(Generator):
         inline = {}
         for g, tag in zip(self.generators, self._tags):
             # Present the sub-generator its stats under its own name.
-            cfg, sub_stats, sub_inline = g.step(generator, cfg, {g.name: stats[tag]})
+            with span(f'update.{g.name}'):
+                cfg, sub_stats, sub_inline = g.step(generator, cfg, {g.name: stats[tag]})
             stats = stats | {tag: sub_stats[g.name]}
             inline.update(sub_inline)
         return cfg, stats, inline

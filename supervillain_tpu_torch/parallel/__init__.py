@@ -1,6 +1,6 @@
 from . import distributed
-from .fleet import Fleet, sample_fleet
-from .fused_fleet import TRUNCATION_BUDGET, check_truncation_budget, sample_fused_fleet
+from .fleet import TRUNCATION_BUDGET, Fleet, check_truncation_budget, sample_fleet
+from .fused_fleet import sample_fused_fleet
 from .mesh import ChainMesh, ChainSpaceMesh, chain_mesh, chain_space_mesh, fleet_sharding
 
 __all__ = ['ChainMesh', 'ChainSpaceMesh', 'Fleet', 'TRUNCATION_BUDGET', 'chain_mesh',

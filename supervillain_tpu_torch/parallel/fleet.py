@@ -13,6 +13,7 @@ bit for bit.
 from __future__ import annotations
 
 import logging
+import warnings
 
 import numpy as np
 import torch
@@ -28,6 +29,31 @@ from . import distributed
 from .mesh import ChainMesh, chain_mesh
 
 logger = logging.getLogger(__name__)
+
+
+#: Truncated-worm fraction above which inline worm histograms should not be
+#: used quantitatively (the short-separation bias scales with this fraction).
+TRUNCATION_BUDGET = 1e-3
+
+
+def check_truncation_budget(truncated, total_worms, *, budget=TRUNCATION_BUDGET, context=''):
+    """Warn when the truncated fraction of worms exceeds ``budget``; return it.
+
+    Capped worms roll back exactly (the sampled distribution is unbiased) but
+    their histogram tallies are kept, so the inline correlator
+    (``Vortex_Vortex``, or ``Spin_Spin`` of the Worldline worms) carries a
+    short-separation bias proportional to the truncated fraction.  Both fleet
+    drivers check their worms against it after a call."""
+    total_worms = max(1, int(total_worms))
+    frac = float(truncated) / total_worms
+    if frac > budget:
+        warnings.warn(
+            f'{context}{float(truncated):.0f}/{total_worms} worms truncated '
+            f'(fraction {frac:.2e} > {budget:g}) — inline worm histograms '
+            f'carry short-separation bias at this point; raise '
+            f'max_worm_moves or exclude the inline correlator from fits.',
+            stacklevel=2)
+    return frac
 
 
 class Fleet:
@@ -100,15 +126,49 @@ class Fleet:
 _WORM_BOUND_FLOOR = 8
 
 
+def _walk_worms(generator, cap=None):
+    """Walk a generator tree once: give each ``ClassicWorm`` without a cap
+    ``cap`` (where ``cap`` is not None).  Returns the tree (the same object
+    where nothing changed), the uncapped worms that were replaced, and the stats
+    tags of the capped worms in the returned tree, whose tallies count a
+    step's worms (``sweeps``) and those that closed (``acceptance``)."""
+    from ..generators import Logger, Sequentially, villain, worldline
+
+    substituted, capped = [], []
+
+    def walk(g, tag):
+        if isinstance(g, Sequentially):
+            parts = [walk(x, t) for x, t in zip(g.generators, g._tags)]
+            changed = any(p is not x for p, x in zip(parts, g.generators))
+            return Sequentially(parts) if changed else g
+        if isinstance(g, KeepEvery):
+            inner = walk(g.generator, tag)
+            return g if inner is g.generator else \
+                KeepEvery(g.n, inner, blocked_inline=g.blocked_inline)
+        if isinstance(g, Logger):
+            inner = walk(g.generator, tag)
+            return g if inner is g.generator else Logger(inner, channel=g.channel, timer=g.timer)
+        if isinstance(g, (villain.ClassicWorm, worldline.ClassicWorm)):
+            if g.max_moves is None and cap is not None:
+                substituted.append(g)
+                g = type(g)(g.Action, max_moves=cap)
+            if g.max_moves is not None:
+                capped.append(tag or g.name)
+        return g
+
+    return walk(generator, None), substituted, capped
+
+
 def _bounded_worms(generator, action, chains, policy):
     """Fleet worm-bounding policy.
 
     ``policy='raise'`` (default): a bare (unbounded) ClassicWorm in the tree
     with ``chains >= _WORM_BOUND_FLOOR`` is an error, naming what to pass
     instead.  ``policy='auto'``: rebuild the tree with
-    ``ClassicWorm(max_moves=8·sites)`` (an exact bounded kernel: truncated
-    worms roll back) and warn.  ``policy='off'``: pass through unchanged."""
-    from ..generators import KeepEvery, Logger, Sequentially, villain, worldline
+    ``ClassicWorm(max_moves=fleet_worm_cap)``, the cap of
+    ``Hammer(S, fleet=True)`` (an exact bounded kernel: truncated worms roll
+    back) and warn.  ``policy='off'``: pass through unchanged."""
+    from ..generators.worldline import fleet_worm_cap
 
     if policy not in ('raise', 'auto', 'off'):
         raise ValueError(f"bound_worms must be 'raise', 'auto', or 'off', "
@@ -116,23 +176,8 @@ def _bounded_worms(generator, action, chains, policy):
     if policy == 'off' or chains < _WORM_BOUND_FLOOR:
         return generator
 
-    cap = 8 * action.Lattice.sites
-    changed = []
-
-    def rebuild(g):
-        if isinstance(g, Sequentially):
-            return Sequentially([rebuild(x) for x in g.generators])
-        if isinstance(g, KeepEvery):
-            return KeepEvery(g.n, rebuild(g.generator), blocked_inline=g.blocked_inline)
-        if isinstance(g, Logger):
-            inner = rebuild(g.generator)
-            return Logger(inner, channel=g.channel, timer=g.timer) if inner is not g.generator else g
-        if isinstance(g, (villain.ClassicWorm, worldline.ClassicWorm)) and g.max_moves is None:
-            changed.append(g)
-            return type(g)(g.Action, max_moves=cap)
-        return g
-
-    rebuilt = rebuild(generator)
+    cap = fleet_worm_cap(action.Lattice)
+    rebuilt, changed, _ = _walk_worms(generator, cap)
     if not changed:
         return generator
     if policy == 'raise':
@@ -150,6 +195,16 @@ def _bounded_worms(generator, action, chains, policy):
         f'worms roll back).  Pass Hammer(..., fleet=True) or '
         f'ClassicWorm(max_moves=...) explicitly to silence this.')
     return rebuilt
+
+
+def _checked_worms(generator, fleet):
+    """``fleet``, its capped worms' truncated share checked against the budget
+    (:func:`check_truncation_budget`, which warns) from its stats."""
+    for tag in _walk_worms(generator)[2]:
+        s = fleet.stats[tag]
+        check_truncation_budget(s['sweeps'] - s['acceptance'], s['sweeps'],
+                                context=f'sample_fleet {tag}: ')
+    return fleet
 
 
 def default_mesh(device):
@@ -324,14 +379,16 @@ def sample_fleet(action, generator, *, chains, steps, thin=1, seed=0, mesh=None,
     (:mod:`.space`).  Every shard's record is queued
     before any is read back; no process talks to another until the records
     are done, and then every process returns the same :class:`Fleet`, in
-    global chain order, equal bit for bit to the unsharded one."""
+    global chain order, equal bit for bit to the unsharded one.  Its capped
+    worms' truncated share is then checked against :data:`TRUNCATION_BUDGET`
+    (:func:`_checked_worms`, a warning)."""
     mesh = default_mesh(resolve_device(device)) if mesh is None else mesh
     generator = _bounded_worms(generator, action, chains, bound_worms)
     if getattr(mesh, 'space', 1) > 1:
         from .space import sample_space_fleet
-        return sample_space_fleet(action, generator, chains=chains, steps=steps, thin=thin,
-                                  seed=seed, mesh=mesh, start=start, keep_fields=keep_fields,
-                                  progress=progress)
+        return _checked_worms(generator, sample_space_fleet(
+            action, generator, chains=chains, steps=steps, thin=thin, seed=seed, mesh=mesh,
+            start=start, keep_fields=keep_fields, progress=progress))
     shards = [(d, block) for d, block in mesh.shards(chains) if len(block)]
     rngs = shard_generators(seed, shards, chains)
     cfgs, statss = [], []
@@ -364,4 +421,5 @@ def sample_fleet(action, generator, *, chains, steps, thin=1, seed=0, mesh=None,
     stats = {tag: join([host(s[tag]) for s in statss]) for tag in generator.init_stats()} \
         if statss else None
     index = thin * (1 + np.arange(steps))
-    return gathered_fleet(action, mesh, shards, columns, final, stats, index, mesh.devices[0])
+    return _checked_worms(generator, gathered_fleet(action, mesh, shards, columns, final, stats,
+                                                    index, mesh.devices[0]))

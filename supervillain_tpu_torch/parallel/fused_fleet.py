@@ -22,8 +22,6 @@ memory that is the returned fleet's own column or final field
 
 from __future__ import annotations
 
-import warnings
-
 import numpy as np
 import torch
 
@@ -35,31 +33,8 @@ from ..ops.sweep import neighborhood_sweeps
 from ..ops.worldline import action_density, worldline_sweeps
 from ..ops.worldline_hammer import worldline_hammer_sweeps
 from ..tracing import count, span
-from .fleet import Landing, gathered_fleet, host, join, wait
+from .fleet import Landing, check_truncation_budget, gathered_fleet, host, join, wait
 from .mesh import ChainMesh
-
-#: Truncated-worm fraction above which inline worm histograms should not be
-#: used quantitatively (the short-separation bias scales with this fraction).
-TRUNCATION_BUDGET = 1e-3
-
-
-def check_truncation_budget(truncated, total_worms, *, budget=TRUNCATION_BUDGET, context=''):
-    """Warn when the truncated fraction of worms exceeds ``budget``; return it.
-
-    Capped worms roll back exactly (the sampled distribution is unbiased) but
-    their histogram tallies are kept, so the inline Vortex_Vortex correlator
-    carries a short-separation bias proportional to the truncated fraction."""
-    total_worms = max(1, int(total_worms))
-    frac = float(truncated) / total_worms
-    if frac > budget:
-        warnings.warn(
-            f'{context}{float(truncated):.0f}/{total_worms} worms truncated '
-            f'(fraction {frac:.2e} > {budget:g}) — inline worm histograms '
-            f'carry short-separation bias at this point; raise '
-            f'max_worm_moves or exclude the inline correlator from fits.',
-            stacklevel=2)
-    return frac
-
 
 def _villain_launch(action, *, thin, interval_phi, interval_n, p_n, worms, max_worm_moves):
     """(phi, n, generator) -> (phi, n, accepted, inline) for one record."""

@@ -16,7 +16,13 @@ tensor's device, so that counting never waits for the device.
 :func:`counters` returns a snapshot of both (reading the device accumulators
 synchronises their devices) and :func:`reset` clears them.
 
-The names in use, and what counts them:
+The spans in use beyond the fleet drivers' (``fleet.*``, see
+:mod:`.parallel.fused_fleet`): ``update.<name>`` around each sub-generator's
+step inside :class:`.generators.combining.Sequentially` (``update.VortexUpdate``,
+``update.CoexactUpdate``, ``update.WrappingUpdate``, ``update.ClassicWorm``;
+``update.SiteUpdate`` and the other Villain updates alike).
+
+The counters in use, and what counts them:
 
 - ``fleet.records``, ``fleet.host_bytes``, ``fleet.final_bytes``,
   ``fleet.syncs``: the fleet driver (:mod:`.parallel.fleet`,
@@ -31,6 +37,12 @@ The names in use, and what counts them:
   Villain sweep's thread 0 of each block, clock cycles waited at cluster
   barriers and in all, counted only while a profiler records
   (:func:`.ops.sweep.kernel_sweeps`);
+- ``worm.worldline.calls``, ``worm.worldline.worms``,
+  ``worm.worldline.moves``, ``worm.worldline.longest``,
+  ``worm.worldline.truncated``: the Worldline worm's calls (B5 in D=2, K2 at
+  D >= 3), their chains' worms, the moves of all of them and of each call's
+  longest, and the worms truncated, counted on the device only while a
+  profiler records (:class:`.generators.worldline.ClassicWorm`);
 - ``space.halo_exchange``, ``space.gather_chain``, ``space.scatter_chain``,
   ``space.gather_slices`` (:mod:`.parallel.space`) and
   ``distributed.collective`` (:mod:`.parallel.distributed`): calls.

@@ -175,5 +175,5 @@ def test_classic_worm_at_d3_goes_through_the_dispatcher(monkeypatch, D):
     S = worldline_action(3, 0.4, 2, D=D)
     fleet = tsv.sample_fleet(S, tw.Hammer(S, fleet=True), chains=2, steps=3, thin=1, seed=1,
                              device='cpu')
-    assert calls == [8 * 3 ** D] * 3
+    assert calls == [tw.FLEET_CAP_PER_SITE * 3 ** D] * 3
     assert S.valid({'m': torch.as_tensor(fleet.final['m'][0])})
