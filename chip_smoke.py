@@ -9,8 +9,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 2. build: compile the CUDA kernels from ``supervillain_tpu_torch/csrc``;
 3. sweep kernel against its plain PyTorch version on the card (N=16, 1024
    chains): per-chain means of ActionDensity, WindingSquared and acceptance
-   within 5 combined standard errors, and the inline ActionDensity of a
-   one-sweep call equal to (κ/2)Σ(dφ−2πn)²/Λ of its output to 1e-5 relative;
+   within 5 combined standard errors, and, in the plan's regime and in the
+   streaming one, the inline ActionDensity of a one-sweep call equal to
+   (κ/2)Σ(dφ−2πn)²/Λ of its output to 1e-5 relative and its WindingSquared
+   to Σ(dn)²/Λ exactly; the same in the streaming regime at the L=1024
+   cell's shape (64 chains, N=1024, 64 bands of rows a chain's sums);
 4. worm kernel (and its plain version) against the enumerated Boltzmann
    distribution of n on a 2×2 lattice with φ frozen: χ²/dof < 3.5 at W=1
    unbounded and at W=2 with a move cap of 8; Worm_Length equal to the
@@ -32,7 +35,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    float rounding of ΔS differs), worms that differ on at most 1% of the
    chains, and inline ActionDensity and WindingSquared within 1e-3; and the
    sweep kernel's resident and streaming regimes on one seed: the same φ, n
-   and accepted counts bit for bit;
+   and accepted counts bit for bit, and inline observables within 1e-3;
 
 and for the Worldline kernels (B4 sweeps, B5 worms, B6 Hammer):
 
@@ -535,9 +538,12 @@ def phase_build(kernels):
 
 def phase_sweep(torch):
     from supervillain_tpu_torch.ops import calculus
-    from supervillain_tpu_torch.ops.sweep import SweepDraws, neighborhood_sweeps, plain_sweeps, lattice
+    from supervillain_tpu_torch.ops.sweep import (STREAMING_PLAN, SweepDraws, kernel_sweeps,
+                                                  lattice, neighborhood_sweeps, plain_sweeps,
+                                                  sum_bands, sweep_plan)
 
-    say('== phase 3: sweep kernel against its plain version (N=16, 1024 chains, κ=0.5, W=1)')
+    say('== phase 3: sweep kernel against its plain version (N=16, 1024 chains, κ=0.5, W=1); '
+        'the one-sweep inline sums also streaming at N=1024, 64 chains')
     N, B, kappa, W = 16, 1024, 0.5, 1
     dev = torch.device('cuda')
     host = torch.Generator().manual_seed(3)
@@ -571,16 +577,37 @@ def phase_sweep(torch):
     for k in records['kernel']:
         per_chain_agreement(k, records['kernel'][k], records['plain'][k])
 
-    # The inline ActionDensity of a single sweep against the output fields.
-    phi, n = final
-    phi1, n1, _, inline = kernel(phi, n, 1)
-    L = lattice(N)
-    r = calculus.d(L, 0, phi1.double()) - 2 * math.pi * n1.double()
-    recomputed = (kappa / 2) * (r * r).sum(dim=(1, 2, 3)) / (N * N)
-    rel = ((inline['ActionDensity'].double() - recomputed).abs() / recomputed.abs()).max().item()
-    say(f'  one-sweep inline ActionDensity vs recomputed: max relative error {rel!r} '
-        f'(bound {INLINE_RTOL})')
-    require(rel < INLINE_RTOL, 'inline ActionDensity disagrees with the output fields')
+    def one_sweep_inline(phi, n, plan):
+        """A one-sweep call's inline sums against its output fields."""
+        N = phi.shape[-1]
+        L = lattice(N)
+        phi1, n1, _, inline = kernel_sweeps(phi, n, plan, kappa=kappa, W=W, interval_phi=math.pi,
+                                            interval_n=1, sweeps=1, generator=host)
+        r = calculus.d(L, 0, phi1.double()) - 2 * math.pi * n1.double()
+        recomputed = (kappa / 2) * (r * r).sum(dim=(1, 2, 3)) / (N * N)
+        rel = ((inline['ActionDensity'].double() - recomputed).abs()
+               / recomputed.abs()).max().item()
+        dn = calculus.d(L, 1, n1.long())
+        exact = torch.equal(inline['WindingSquared'],
+                            ((dn * dn).sum(dim=(1, 2, 3)).double() / (N * N)).float())
+        say(f'  one-sweep inline ActionDensity vs recomputed ({plan.regime}, {phi.shape[0]} '
+            f'chains, N={N}, {sum_bands(N)} bands a chain when streaming): max relative error '
+            f'{rel!r} (bound {INLINE_RTOL}); WindingSquared exact: {exact}')
+        require(rel < INLINE_RTOL, 'inline ActionDensity disagrees with the output fields')
+        require(exact, 'inline WindingSquared disagrees with the output n')
+
+    # In the plan's regime and in the streaming one, from the state above; then
+    # the streaming regime at the L=1024 cell's shape, where a chain's sums
+    # run in bands, from a hot start after 20 sweeps.
+    for plan in (sweep_plan(N), STREAMING_PLAN):
+        one_sweep_inline(*final, plan)
+    B, N = 64, 1024
+    g = torch.Generator().manual_seed(5)
+    phi = ((torch.rand((B, 1, N, N), generator=g) - 0.5) * 2 * math.pi).to(dev)
+    n = torch.zeros((B, 2, N, N), dtype=torch.int32, device=dev)
+    phi, n, _, _ = kernel_sweeps(phi, n, STREAMING_PLAN, kappa=kappa, W=W, interval_phi=math.pi,
+                                 interval_n=1, sweeps=20, generator=host)
+    one_sweep_inline(phi, n, STREAMING_PLAN)
 
 
 def phase_worm(torch):
@@ -695,8 +722,8 @@ def phase_invariants(torch):
 def phase_main_path(torch, card):
     import supervillain_tpu_torch as sv
     from supervillain_tpu_torch.ops.hammer import hammer_sweeps
-    from supervillain_tpu_torch.ops.sweep import (STREAMING_PLAN, SweepDraws, kernel_sweeps,
-                                                  neighborhood_sweeps, plain_sweeps,
+    from supervillain_tpu_torch.ops.sweep import (STREAMING_PLAN, SweepDraws, bands,
+                                                  kernel_sweeps, neighborhood_sweeps, plain_sweeps,
                                                   resident_clusters, sweep_plan)
     from supervillain_tpu_torch.ops.worm import WormDraws, classic_worms, plain_worms
     from supervillain_tpu_torch.parallel import TRUNCATION_BUDGET
@@ -764,7 +791,8 @@ def phase_main_path(torch, card):
                              max_worm_moves=cap, generator=host, **common)
 
     plan = sweep_plan(N)
-    say(f'  [{card}] sweep plan at N={N}: {plan}; bands (first row, rows) {plan.bands(N)}; '
+    say(f'  [{card}] sweep plan at N={N}: {plan}; '
+        f'bands (first row, rows) {bands(N, plan.cluster)}; '
         f'{resident_clusters(plan) if plan.regime == "resident" else 0} clusters run at once')
     spreads = {'sweep': call_spread(torch, sweep, 7), 'hammer': call_spread(torch, hammer, 7)}
     timed = {k: (float(np.median(t)), out) for k, (t, out) in spreads.items()}
@@ -914,8 +942,9 @@ def phase_same_draws(torch, final):
     inline = max(float((outs['resident'][3][k] - outs['streaming'][3][k]).abs().max())
                  for k in ('ActionDensity', 'WindingSquared'))
     say(f'  sweep regimes {plans["resident"].regime} and streaming on one seed: φ, n, accepted '
-        f'equal {same}; max |Δ inline| {inline!r}')
+        f'equal {same}; max |Δ inline| {inline!r} (bound {SAME_DRAWS_INLINE})')
     require(all(same), 'the resident and streaming sweep regimes differ on one seed')
+    require(inline <= SAME_DRAWS_INLINE, 'the resident and streaming inline sums differ')
     torch.cuda.synchronize()
     return err
 

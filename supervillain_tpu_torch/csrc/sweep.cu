@@ -48,12 +48,22 @@
 // writes them back when accepted, and the per-sweep inline sums read r and n
 // once more (16 B/site) — about 70-90 B of traffic per site-update, so the
 // card's 3.35 TB/s caps it near 4e10 site-updates/s.
-// One thread per (chain, site of color c), one launch per color pass, plus
-// one reduction launch per sweep.  Each link is adjacent to exactly one site
-// of each color, so no two threads of a pass write the same word.  Accepted
-// counts are aggregated per warp (peers by chain) before one atomicAdd.
-// Same-color sites of a row sit two words apart, so a warp uses half of each
-// 32-byte sector it loads; B4's color planes would fix that (later work).
+// One thread per (chain, site of color c), one launch per color pass.  Each
+// link is adjacent to exactly one site of each color, so no two threads of a
+// pass write the same word.  Accepted counts are aggregated per warp (peers by
+// chain) before one atomicAdd.  Same-color sites of a row sit two words apart,
+// so a warp uses half of each 32-byte sector it loads; B4's color planes
+// would fix that (later work).
+// The inline sums take one launch a sweep over the whole card: each chain is
+// cut into k bands of rows, a block a band, k chosen on the host from N alone
+// (ops/sweep.py sum_bands: about 16384 sites a block, 64 bands at N = 1024),
+// so that a chain's sums are added in one order whatever the batch and the
+// card; 64 chains of N = 1024 launch 4096 blocks.  A block walks its
+// band with a (t, x) cursor and coalesced loads, adds r² in float64 and (dn)²
+// in int64, reduces in a fixed order and keeps its total in a slot of its own
+// across the call's sweeps; one launch at the call's end adds each chain's
+// slots in band order.  No float atomics: a seed gives the same sums bit for
+// bit.
 //
 // Colour table (odd N): a torus of odd side is not two-colourable, so the
 // lattice colours it with 4 colours (ops/lattice.py checkerboard_masks: pairs
@@ -263,40 +273,132 @@ __global__ void color_pass_table(float* __restrict__ phi, int* __restrict__ n,
     }
 }
 
+// Rows [start, start + rows) of band `rank` of k of a chain (a resident
+// block's, or a streaming sums block's): N / k rows each, one more for the
+// first N % k bands (ops/sweep.py bands).
+struct Band {
+    int start, rows;
+};
+
+__device__ __forceinline__ Band band_of(int rank, int N, int k) {
+    const int base = N / k, extra = N - base * k;
+    return {rank * base + min(rank, extra), base + (rank < extra ? 1 : 0)};
+}
+
+// (row, col) of a thread's entries over rows of `width` columns: it starts at
+// entry threadIdx.x and steps by blockDim.x, carrying the column over.
+struct Cursor {
+    int row, col, drow, dcol, width;
+    __device__ __forceinline__ Cursor(int width_) : width(width_) {
+        row = (int)threadIdx.x / width;
+        col = (int)threadIdx.x - row * width;
+        drow = (int)blockDim.x / width;
+        dcol = (int)blockDim.x - drow * width;
+    }
+    __device__ __forceinline__ void next() {
+        row += drow;
+        col += dcol;
+        if (col >= width) {
+            col -= width;
+            ++row;
+        }
+    }
+};
+
+// The sum of a value over a warp, in a fixed order, in lane 0.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T a) {
+    for (int o = 16; o > 0; o /= 2) a += __shfl_down_sync(0xffffffffu, a, o);
+    return a;
+}
+
 constexpr int kSumThreads = 256;
 
-// One block per chain: add Σ r² and Σ (dn)² over the chain's sites to sums[chain].
+// A sweep's inline sums over one band of rows of a chain: block b is band
+// b mod k of chain b / k (band_of).  A thread walks the band's sites with a
+// cursor, never dividing, and reads r0, r1, n0 and n1 at its site, coalesced,
+// and n1[t+1, x] and n0[t, x+1] from the band's own rows or the next band's
+// first row, through the cache.  r² adds up in float64 and (dn)² in int64,
+// exactly; the warp, then thread 0 over the warps, adds the threads' sums in
+// a fixed order, and the block stores them in its own slot at the call's
+// first sweep and adds them to it at every later one.
 __global__ void inline_sums(const float* __restrict__ r, const int* __restrict__ n,
-                            double* __restrict__ sums, int N) {
+                            double* __restrict__ slot_r2, long long* __restrict__ slot_dn2,
+                            int N, int k, bool first) {
     const long long NN = (long long)N * N;
-    const int chain = blockIdx.x;
+    const int chain = blockIdx.x / k;
+    const Band band = band_of(blockIdx.x - chain * k, N, k);
     const float* r0 = r + chain * 2 * NN;
+    const float* r1 = r0 + NN;
     const int* n0 = n + chain * 2 * NN;
     const int* n1 = n0 + NN;
-    double a = 0.0, b = 0.0;
-    for (int s = threadIdx.x; s < NN; s += blockDim.x) {
-        const int t = s / N, x = s - t * N;
-        const int tp = t + 1 == N ? 0 : t + 1, xp = x + 1 == N ? 0 : x + 1;
-        const float v0 = r0[s], v1 = r0[NN + s];
+    const int end = (band.start + band.rows) * N;
+    Cursor c(N);
+    double a = 0.0;
+    long long b = 0;
+#pragma unroll 4
+    for (int s = band.start * N + (int)threadIdx.x; s < end; s += kSumThreads, c.next()) {
+        const int t = band.start + c.row, x = c.col;
+        const int up = t + 1 == N ? x : s + N;              // (t+1, x)
+        const int right = x + 1 == N ? s + 1 - N : s + 1;   // (t, x+1)
+        const float v0 = r0[s], v1 = r1[s];
         a += (double)v0 * v0 + (double)v1 * v1;
-        const int dn = (n1[tp * N + x] - n1[s]) - (n0[t * N + xp] - n0[s]);
-        b += (double)dn * dn;
+        const int dn = (n1[up] - n1[s]) - (n0[right] - n0[s]);
+        b += (long long)dn * dn;
     }
-    __shared__ double sa[kSumThreads], sb[kSumThreads];
-    sa[threadIdx.x] = a;
-    sb[threadIdx.x] = b;
+    a = warp_sum(a);
+    b = warp_sum(b);
+    __shared__ double warp_r2[kSumThreads / 32];
+    __shared__ long long warp_dn2[kSumThreads / 32];
+    if ((threadIdx.x & 31) == 0) {
+        warp_r2[threadIdx.x / 32] = a;
+        warp_dn2[threadIdx.x / 32] = b;
+    }
     __syncthreads();
-    for (int h = kSumThreads / 2; h > 0; h /= 2) {
-        if ((int)threadIdx.x < h) {
-            sa[threadIdx.x] += sa[threadIdx.x + h];
-            sb[threadIdx.x] += sb[threadIdx.x + h];
-        }
-        __syncthreads();
-    }
     if (threadIdx.x == 0) {
-        sums[2 * chain] += sa[0];
-        sums[2 * chain + 1] += sb[0];
+        a = 0.0;
+        b = 0;
+        for (int w = 0; w < kSumThreads / 32; ++w) {
+            a += warp_r2[w];
+            b += warp_dn2[w];
+        }
+        slot_r2[blockIdx.x] = first ? a : slot_r2[blockIdx.x] + a;
+        slot_dn2[blockIdx.x] = first ? b : slot_dn2[blockIdx.x] + b;
     }
+}
+
+// The call's last step, under the same name: sums[chain] gets the chain's k
+// slots added in band order, a thread a chain.
+__global__ void inline_sums(const double* __restrict__ slot_r2,
+                            const long long* __restrict__ slot_dn2, double* __restrict__ sums,
+                            int B, int k) {
+    const int chain = blockIdx.x * blockDim.x + threadIdx.x;
+    if (chain >= B) return;
+    double a = 0.0;
+    long long b = 0;
+    for (int i = chain * k; i < (chain + 1) * k; ++i) {
+        a += slot_r2[i];
+        b += slot_dn2[i];
+    }
+    sums[2 * chain] = a;
+    sums[2 * chain + 1] = (double)b;
+}
+
+// The band sums of one sweep over B chains in k bands each (first: the call's
+// first sweep, which stores rather than adds).
+cudaError_t band_sums(const float* r, const int* n, double* slot_r2, long long* slot_dn2, int B,
+                      int N, int k, bool first, cudaStream_t stream) {
+    inline_sums<<<(unsigned)(B * k), kSumThreads, 0, stream>>>(r, n, slot_r2, slot_dn2, N, k,
+                                                              first);
+    return cudaGetLastError();
+}
+
+// The call's fold of the slots of B chains of k bands into sums (B, 2).
+cudaError_t fold_sums(const double* slot_r2, const long long* slot_dn2, double* sums, int B,
+                      int k, cudaStream_t stream) {
+    inline_sums<<<(unsigned)((B + kSumThreads - 1) / kSumThreads), kSumThreads, 0, stream>>>(
+        slot_r2, slot_dn2, sums, B, k);
+    return cudaGetLastError();
 }
 
 
@@ -399,44 +501,6 @@ namespace cg = cooperative_groups;
 
 constexpr int kResidentThreads = 1024;  // the most a plan asks for (ops/sweep.py)
 constexpr int kWarps = kResidentThreads / 32;
-
-// Rows [start, start + rows) of the chain held by the block of rank `rank` of
-// k: N / k rows each, one more for the first N % k ranks (ops/sweep.py bands).
-struct Band {
-    int start, rows;
-};
-
-__device__ __forceinline__ Band band_of(int rank, int N, int k) {
-    const int base = N / k, extra = N - base * k;
-    return {rank * base + min(rank, extra), base + (rank < extra ? 1 : 0)};
-}
-
-// (row, col) of a thread's entries over rows of `width` columns: it starts at
-// entry threadIdx.x and steps by blockDim.x, carrying the column over.
-struct Cursor {
-    int row, col, drow, dcol, width;
-    __device__ __forceinline__ Cursor(int width_) : width(width_) {
-        row = (int)threadIdx.x / width;
-        col = (int)threadIdx.x - row * width;
-        drow = (int)blockDim.x / width;
-        dcol = (int)blockDim.x - drow * width;
-    }
-    __device__ __forceinline__ void next() {
-        row += drow;
-        col += dcol;
-        if (col >= width) {
-            col -= width;
-            ++row;
-        }
-    }
-};
-
-// The sum of a value over a warp, in a fixed order, in lane 0.
-template <typename T>
-__device__ __forceinline__ T warp_sum(T a) {
-    for (int o = 16; o > 0; o /= 2) a += __shfl_down_sync(0xffffffffu, a, o);
-    return a;
-}
 
 // cluster.sync(); when timing, adds the cycles the thread spent in it to *waited.
 __device__ __forceinline__ void cluster_sync(cg::cluster_group& cluster, bool timing,
@@ -674,21 +738,24 @@ const char* sv_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // two-color passes when colors is null (N even), else one pass per color of
 // the table colors (N·N int8, values 0..n_colors-1).  accepted (B,) int32
 // receives the accepted site updates; sums (B, 2) double receives Σ_sweeps Σ r²
-// and Σ_sweeps Σ (dn)².  r (B, 2, N, N) f32 is scratch.  W == 0 selects z-mode
-// (W = ∞); p_n < 0 means no zero inflation.  chain0 is the global index of
-// the first chain, which the chains' draws count from.
+// and Σ_sweeps Σ (dn)².  r (B, 2, N, N) f32 and the slots (B·bands) of the
+// inline sums, slot_r2 double and slot_dn2 int64, are scratch; bands (1..N)
+// is the sums' blocks a chain.  W == 0 selects z-mode (W = ∞); p_n < 0 means
+// no zero inflation.  chain0 is the global index of the first chain, which
+// the chains' draws count from.
 int sv_sweeps(const float* phi_in, const int* n_in, float* phi, int* n, float* r,
-              int* accepted, double* sums, const int8_t* colors, int n_colors, int B, int N,
-              int sweeps, float kappa, int W, float interval_phi, int interval_n, float p_n,
+              double* slot_r2, long long* slot_dn2, int* accepted, double* sums,
+              const int8_t* colors, int n_colors, int bands, int B, int N, int sweeps,
+              float kappa, int W, float interval_phi, int interval_n, float p_n,
               unsigned long long seed, unsigned int chain0, void* stream_ptr) {
     if (colors == nullptr && (N % 2 != 0 || n_colors != 2)) return cudaErrorInvalidValue;
+    if (sweeps < 1 || bands < 1 || bands > N) return cudaErrorInvalidValue;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     const size_t NN = (size_t)N * N;
     cudaError_t e;
     if ((e = cudaMemcpyAsync(phi, phi_in, B * NN * sizeof(float), cudaMemcpyDeviceToDevice, stream))) return e;
     if ((e = cudaMemcpyAsync(n, n_in, 2 * B * NN * sizeof(int), cudaMemcpyDeviceToDevice, stream))) return e;
     if ((e = cudaMemsetAsync(accepted, 0, B * sizeof(int), stream))) return e;
-    if ((e = cudaMemsetAsync(sums, 0, 2 * B * sizeof(double), stream))) return e;
 
     const int threads = 256;
     init_residual<<<(unsigned)((B * NN + threads - 1) / threads), threads, 0, stream>>>(phi, n, r, B, N);
@@ -711,10 +778,19 @@ int sv_sweeps(const float* phi_in, const int* n_in, float* phi, int* n, float* r
             }
             if ((e = cudaGetLastError())) return e;
         }
-        inline_sums<<<B, kSumThreads, 0, stream>>>(r, n, sums, N);
-        if ((e = cudaGetLastError())) return e;
+        if ((e = band_sums(r, n, slot_r2, slot_dn2, B, N, bands, sweep == 0, stream))) return e;
     }
-    return cudaGetLastError();
+    return fold_sums(slot_r2, slot_dn2, sums, B, bands, stream);
+}
+
+// One sweep's inline sums of (r, n) as sv_sweeps takes them, alone: sums (B, 2)
+// double gets Σ r² and Σ (dn)² of each chain, through the same bands and slots.
+int sv_inline_sums(const float* r, const int* n, double* slot_r2, long long* slot_dn2,
+                   double* sums, int bands, int B, int N, void* stream_ptr) {
+    if (bands < 1 || bands > N) return cudaErrorInvalidValue;
+    cudaStream_t stream = (cudaStream_t)stream_ptr;
+    cudaError_t e = band_sums(r, n, slot_r2, slot_dn2, B, N, bands, true, stream);
+    return e ? e : fold_sums(slot_r2, slot_dn2, sums, B, bands, stream);
 }
 
 // The resident regime under the plan (k, hmax, threads, shared_bytes) that

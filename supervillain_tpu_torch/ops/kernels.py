@@ -34,7 +34,8 @@ _P, _I, _U, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctype
 _WORLDLINE_SWEEPS = [_P] * 12 + [_I, _I, _I, _I, _F, _F, _F, _I, _I, _ULL, _U, _P]
 _WORLDLINE_WORMS = [_P] * 7 + [_LL, _I, _I, _F, _F, _I, _LL, _ULL, _U, _P]
 _SIGNATURES = {
-    'sv_sweeps': [_P] * 8 + [_I, _I, _I, _I, _F, _I, _F, _I, _F, _ULL, _U, _P],
+    'sv_sweeps': [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _F, _I, _F, _ULL, _U, _P],
+    'sv_inline_sums': [_P] * 5 + [_I, _I, _I, _P],
     'sv_sweeps_resident': [_P] * 7 + [_I, _I, _I, _F, _I, _F, _I, _F, _ULL, _U, _I, _I, _I, _I,
                                       _P],
     'sv_sweeps_resident_clusters': [_I, _I, _I, _P],

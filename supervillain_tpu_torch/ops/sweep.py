@@ -86,15 +86,17 @@ class SweepPlan(NamedTuple):
     threads: int        # threads per block
     shared_bytes: int   # dynamic shared memory per block
 
-    def bands(self, N):
-        """(first row, rows) of each block of a chain's cluster, by rank: N // k
-        rows each, one more for the first N % k ranks (``csrc/sweep.cu``
-        ``band_of``).  Empty when streaming."""
-        k = self.cluster
-        if k == 0:
-            return []
-        base, extra = divmod(N, k)
-        return [(rank * base + min(rank, extra), base + (rank < extra)) for rank in range(k)]
+
+def bands(N, k):
+    """(first row, rows) of each of k bands of a chain's N rows, in order: N // k
+    rows each, one more for the first N % k bands (``csrc/sweep.cu``
+    ``band_of``).  A resident plan's cluster ranks (k = its ``cluster``; none
+    when streaming, k = 0) and the streaming inline sums' blocks
+    (:func:`sum_bands`) cut a chain so."""
+    if k == 0:
+        return []
+    base, extra = divmod(N, k)
+    return [(band * base + min(band, extra), base + (band < extra)) for band in range(k)]
 
 
 #: The plan of every even N beyond the resident regime's reach.
@@ -127,6 +129,21 @@ def sweep_plan(N: int) -> SweepPlan:
             threads = min(RESIDENT_THREADS, 32 * -(-entries // 32))
             return SweepPlan('resident', k, rows, threads, shared)
     return STREAMING_PLAN
+
+
+#: Sites a block of the streaming inline sums takes, 64 a thread: at 64
+#: chains of N=1024 the fastest of 33 to 512 bands a chain on the H100.
+SUM_SITES = 64 * STREAMING_THREADS
+
+
+def sum_bands(N: int) -> int:
+    """Blocks a chain of the streaming regime's inline sums (``csrc/sweep.cu``
+    ``inline_sums``), a function of N alone: each takes a band of rows
+    (:func:`bands`) of about :data:`SUM_SITES` sites, and a chain of fewer
+    than twice that one block.  Never more bands than the chain has rows.  So
+    a chain's sums are added in one order whatever chains share its call and
+    whatever the card: a shard gives its rows of the whole call bit for bit."""
+    return max(1, min(N, N * N // SUM_SITES))
 
 
 def resident_clusters(plan: SweepPlan) -> int:
@@ -381,13 +398,15 @@ def kernel_sweeps(phi, n, plan, *, kappa, W, interval_phi, interval_n, sweeps, p
                 *args, plan.cluster, plan.rows, plan.threads, plan.shared_bytes, stream)
         else:
             r = torch.empty(n.shape, dtype=torch.float32, device=phi.device)
+            k = sum_bands(N)
+            slot_r2, slot_dn2 = _sum_slots(B * k, phi.device)
             colors, n_colors = None, 2
             if plan.regime == 'table':
                 colors, n_colors = color_table(N, phi.device), lattice(N).n_colors
             code = lib.sv_sweeps(
                 phi.data_ptr(), n.data_ptr(), phi_out.data_ptr(), n_out.data_ptr(), r.data_ptr(),
-                accepted.data_ptr(), sums.data_ptr(),
-                None if colors is None else colors.data_ptr(), n_colors, *args, stream)
+                slot_r2.data_ptr(), slot_dn2.data_ptr(), accepted.data_ptr(), sums.data_ptr(),
+                None if colors is None else colors.data_ptr(), n_colors, k, *args, stream)
     kernels.check(code, f'neighborhood_sweeps ({plan.regime})')
     neighborhood_sweeps.launches += 1
     if plan.regime == 'resident' and cycles is not None:
@@ -400,6 +419,31 @@ def kernel_sweeps(phi, n, plan, *, kappa, W, interval_phi, interval_n, sweeps, p
 
 #: Calls that launched the CUDA kernel (the CPU path never counts).
 neighborhood_sweeps.launches = 0
+
+
+def _sum_slots(blocks, device):
+    """The streaming inline sums' scratch: a float64 Σr² and an int64 Σ(dn)²
+    slot a block."""
+    return (torch.empty(blocks, dtype=torch.float64, device=device),
+            torch.empty(blocks, dtype=torch.int64, device=device))
+
+
+def streaming_sums(r, n, bands=None):
+    """One sweep's inline sums of the streaming regime, alone: Σ r² and Σ (dn)²
+    of each chain, (B, 2) float64, of a residual ``r`` (B, 2, N, N) float32 and
+    ``n`` (B, 2, N, N) int32 on the card, reduced by the blocks and slots that
+    :func:`kernel_sweeps` uses after every streaming sweep, in ``bands`` bands
+    a chain (default :func:`sum_bands`)."""
+    B, N = kernels._require_batch(('r', r), ('n', n), (torch.float32, torch.int32), (2, 2))
+    k = sum_bands(N) if bands is None else int(bands)
+    slot_r2, slot_dn2 = _sum_slots(B * k, r.device)
+    sums = torch.empty((B, 2), dtype=torch.float64, device=r.device)
+    with torch.cuda.device(r.device):
+        code = kernels.library().sv_inline_sums(r.data_ptr(), n.data_ptr(), slot_r2.data_ptr(),
+                                                slot_dn2.data_ptr(), sums.data_ptr(), k, B, N,
+                                                kernels.stream_handle(r.device))
+    kernels.check(code, 'streaming_sums')
+    return sums
 
 
 # -- the slab entry: one color pass over a slab of a chain × space mesh ----------

@@ -17,7 +17,8 @@ from supervillain_tpu_torch.ops import calculus, kernels
 from supervillain_tpu_torch.ops.hammer import hammer_sweeps
 from supervillain_tpu_torch.ops.sweep import (STREAMING_PLAN, TABLE_PLAN, KernelSweepDraws,
                                               SweepPlan, kernel_sweeps, lattice,
-                                              neighborhood_sweeps, plain_sweeps, sweep_plan)
+                                              neighborhood_sweeps, plain_sweeps, streaming_sums,
+                                              sum_bands, sweep_plan)
 from supervillain_tpu_torch.ops.worm import KernelWormDraws, classic_worms, plain_worms
 from supervillain_tpu_torch.ops.worldline import (KernelWorldlineSweepDraws,
                                                   plain_worldline_sweeps, worldline_sweeps)
@@ -209,6 +210,45 @@ def test_streaming_sweeps_at_n512_repeat_their_plain_version(cuda):
     assert float((got[1] != want[1]).float().mean()) <= 1e-3
     torch.testing.assert_close(got[3]['ActionDensity'], want[3]['ActionDensity'],
                                rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize('N, bands', [(310, 7), (311, None), (1024, 33), (1024, None)])
+def test_streaming_sums_equal_a_float64_recomputation(cuda, N, bands):
+    """The streaming inline sums of one sweep, alone, in several bands a chain
+    (7, 33 and the default 5 at N=311 do not divide N; the default at N=1024
+    is 64 bands of 16 rows): Σ r² to float64 rounding, Σ (dn)² exactly."""
+    B = 3
+    g = torch.Generator().manual_seed(N)
+    r = ((torch.rand((B, 2, N, N), generator=g) - 0.5) * 8 * math.pi).to(cuda)
+    n = torch.randint(-3, 4, (B, 2, N, N), generator=g, dtype=torch.int32).to(cuda)
+    k = sum_bands(N) if bands is None else bands
+    assert k > 1 and (bands is None or N % k)
+    got = streaming_sums(r, n, bands)
+    dn = calculus.d(lattice(N), 1, n.long())
+    torch.testing.assert_close(got[:, 0], (r.double() ** 2).sum(dim=(1, 2, 3)), rtol=1e-12,
+                               atol=0)
+    assert torch.equal(got[:, 1], (dn * dn).sum(dim=(1, 2, 3)).double())
+    assert torch.equal(streaming_sums(r, n, bands), got)
+
+
+@pytest.mark.parametrize('N', [310, 1024])
+def test_streaming_sweeps_sum_the_fields_they_leave(cuda, N):
+    """The streaming plan at B=3, in 5 and 64 bands a chain: a sweep's inline
+    WindingSquared is Σ (dn)² of the output n exactly, its ActionDensity that
+    of the output fields up to the residual's float32 drift; two calls on one
+    seed give the same sums bit for bit."""
+    B, mode = 3, SWEEP_MODES[1]
+    phi, n = _warm(B, N, mode[0], 9, cuda)
+    phi1, n1, _, inline = _plan_sweeps(phi, n, STREAMING_PLAN, mode, 1, 5)
+    dn = calculus.d(lattice(N), 1, n1.long())
+    exact = (dn * dn).sum(dim=(1, 2, 3)).double() / (N * N)
+    assert torch.equal(inline['WindingSquared'], exact.float())
+    r = calculus.d(lattice(N), 0, phi1.double()) - 2 * math.pi * n1.double()
+    torch.testing.assert_close(inline['ActionDensity'].double(),
+                               0.2 * (r * r).sum(dim=(1, 2, 3)) / (N * N), rtol=1e-5, atol=0)
+    a, b = (_plan_sweeps(phi, n, STREAMING_PLAN, mode, 3, 6) for _ in range(2))
+    for x, y in zip(_tensors(a), _tensors(b)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize('N', [6, 130, 256])
@@ -653,10 +693,11 @@ def test_table_plan_at_even_n_agrees_with_the_kernels_plan_bit_for_bit(cuda, N):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize('N', [16, 15])
+@pytest.mark.parametrize('N', [16, 15, 1024, 311])
 def test_a_shard_with_chain0_gives_its_rows_of_the_whole_call(cuda, N):
     """Each kernel on 12 chains, and on the shards [0, 5) and [5, 12) with
-    chain0 = 0 and 5 and the same seed: every output row equal bit for bit."""
+    chain0 = 0 and 5 and the same seed: every output row equal bit for bit
+    (at N = 1024 and 311 the sweeps stream, their inline sums in bands)."""
     B, cut = 12, 5
     g = torch.Generator().manual_seed(N)
     phi = ((torch.rand((B, 1, N, N), generator=g) - 0.5) * 2 * math.pi).to(cuda)
